@@ -1,0 +1,47 @@
+"""Prefill flash attention on the card: `csrc/flash_attention.cu`.
+
+Replaces `repro/kernels/flash_attention.py::flash_attention_fwd` together
+with its wrapper's KV repeat, fold and padding: the kernel reads
+q (B,Sq,H,hd) and k, v (B,Skv,KVH,hd) in place through their strides. The
+plain version is `ref.flash_attention`; `ops.flash_attention` picks
+between them by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ._build import CudaKernel
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+KERNEL = CudaKernel("flash_attention", "flash_attention",
+                    [_P, _P, _P, _P] + [_I] * 6 + [_L] * 9 + [_I, _I, _I, _P])
+MAX_HEAD_DIM = 256
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Launch the kernel. q: (B,Sq,H,hd); k, v: (B,Skv,KVH,hd), each with
+    unit stride on hd (other strides are free); one CUDA device; f32 or
+    bf16. Returns a contiguous (B,Sq,H,hd) in q's dtype."""
+    tensors = (q, k, v)
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError("flash_attention kernel needs CUDA tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("flash_attention: tensors on different devices")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("flash_attention: head_dim must be contiguous")
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes head_dim <= "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    strides = [s for t in tensors for s in t.stride()[:3]]
+    KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, sq, skv, h, kvh, hd, *strides, int(causal), int(window),
+                  int(q.dtype == torch.bfloat16),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,0 +1,202 @@
+"""Serving: one-slot prefill per arrival and batched decode steps over a
+slot-based KV cache (continuous batching).
+
+Counterpart of `repro.serve.engine` with its fused engine
+(`engine="jit"`): requests of different lengths share one batched cache;
+each slot keeps its own position, passed to the model as `positions`, so
+one decode step advances every live slot by one token whatever the skew.
+Greedy sampling by default; temperature sampling draws from the engine's
+`torch.Generator` (its bits differ from `jax.random`'s).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from ..device import resolve_device
+from ..models import ModelConfig, forward, init_cache
+
+
+def sample(logits, generator=None, temperature: float = 0.0):
+    """Greedy argmax (`temperature <= 0`) or temperature sampling over the
+    last axis of `logits`; returns int32 token ids."""
+    if temperature <= 0.0:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    out = torch.multinomial(flat, 1, generator=generator)
+    return out.reshape(probs.shape[:-1]).to(torch.int32)
+
+
+@dataclasses.dataclass
+class Request:
+    """One serving request: an int prompt, a new-token budget, and the
+    tokens generated so far (`out_tokens`, filled by the engine).
+    `first_token_at` is the host clock (`time.perf_counter`) when the first
+    token was known."""
+    rid: int
+    prompt: torch.Tensor         # (S,) int
+    max_new_tokens: int
+    out_tokens: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    first_token_at: float | None = None
+
+
+class ServeEngine:
+    """Slot-based batched decoding over a fixed batch of cache slots.
+
+    Single-sequence prefill per arrival (depth-first admission) + batched
+    decode for all live slots. `device` None means the card; there is no
+    silent fall back to the CPU. Counters: `n_prefills`, `n_decode_steps`
+    (decode forward calls), and the host seconds spent in each
+    (`prefill_s`, `decode_s`, each ending in the step's one host sync).
+    """
+
+    def __init__(self, cfg: ModelConfig, params, *, batch_slots: int,
+                 max_len: int, temperature: float = 0.0,
+                 eos_id: int | None = None, seed: int = 0, device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        self.n_slots = batch_slots
+        self.max_len = max_len
+        self.temperature = temperature
+        self.eos_id = eos_id
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+
+        # per-slot caches live stacked in one batched cache; the model's
+        # cache carries one global index, per-slot positions live here
+        self.cache = init_cache(cfg, batch_slots, max_len, self.device)
+        self.slot_pos = torch.zeros(batch_slots, dtype=torch.int32,
+                                    device=self.device)
+        # liveness on the host (for the loop) and on the device (for the
+        # step), so a step uploads nothing and syncs once
+        self.slot_live = [False] * batch_slots
+        self.live_mask = torch.zeros(batch_slots, dtype=torch.bool,
+                                     device=self.device)
+        self.slot_req: list[Request | None] = [None] * batch_slots
+        self.last_tok = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                    device=self.device)
+        self.n_prefills = self.n_decode_steps = 0
+        self.prefill_s = self.decode_s = 0.0
+
+    # ------------------------------------------------------------- #
+    @torch.no_grad()
+    def _decode_step(self):
+        positions = self.slot_pos[:, None]
+        # index drives slot addressing; per-slot validity is the per-row
+        # positions array (cache index is the max position across slots)
+        logits, self.cache, _ = forward(self.params, self.cfg,
+                                        tokens=self.last_tok,
+                                        cache=self.cache, positions=positions)
+        nxt = sample(logits[:, -1], self.generator, self.temperature)
+        # dead slots keep their last token and don't advance
+        live = self.live_mask
+        self.last_tok = torch.where(live, nxt, self.last_tok[:, 0])[:, None]
+        self.slot_pos = torch.where(live, self.slot_pos + 1, self.slot_pos)
+
+    @torch.no_grad()
+    def _prefill_one(self, tokens, slot: int):
+        """Prefill one slot: run the single sequence through a one-slot
+        cache, then copy its KV rows into row `slot` of the batched cache.
+        Returns the last position's logits."""
+        one = init_cache(self.cfg, 1, self.max_len, self.device)
+        logits, one, _ = forward(self.params, self.cfg, tokens=tokens[None],
+                                 cache=one)
+        for dst, src in zip(self.cache["layers"], one["layers"]):
+            for name in dst:                    # (blocks, B, W, KVH, hd)
+                dst[name][:, slot] = src[name][:, 0]
+        self.cache["index"] = torch.maximum(self.cache["index"], one["index"])
+        return logits[0, -1]
+
+    # ------------------------------------------------------------- #
+    @property
+    def n_free(self) -> int:
+        """Number of free (admittable) cache slots right now."""
+        return self.slot_live.count(False)
+
+    def admit(self, req: Request) -> bool:
+        """Admit a request into a free slot (prefill now). False if full.
+
+        Raises ValueError for prompts the slot cache cannot hold
+        (`len(prompt) >= max_len`: the slot must fit the prompt plus at
+        least one generated token) and for non-positive token budgets. A
+        request whose budget or EOS is already satisfied by its FIRST
+        sampled token finishes at admit: it is marked done and the slot
+        stays free."""
+        try:
+            slot = self.slot_live.index(False)
+        except ValueError:
+            return False
+        plen = int(req.prompt.shape[0])
+        if plen >= self.max_len:
+            raise ValueError(
+                f"prompt of {plen} tokens does not fit max_len="
+                f"{self.max_len} (slot cache holds prompt + generated "
+                "tokens); reject or shed it upstream")
+        if req.max_new_tokens < 1:
+            raise ValueError(
+                f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
+        t0 = time.perf_counter()
+        prompt = req.prompt.to(self.device, torch.int64)
+        logits = self._prefill_one(prompt, slot)
+        first = int(sample(logits, self.generator, self.temperature))
+        req.first_token_at = time.perf_counter()
+        self.n_prefills += 1
+        self.prefill_s += req.first_token_at - t0
+        req.out_tokens.append(first)
+        if (len(req.out_tokens) >= req.max_new_tokens
+                or (self.eos_id is not None and first == self.eos_id)):
+            req.done = True
+            return True
+        self.slot_live[slot] = True
+        self.live_mask[slot] = True
+        self.slot_req[slot] = req
+        self.slot_pos[slot] = plen
+        self.last_tok[slot, 0] = first
+        return True
+
+    def step(self) -> int:
+        """One batched decode step for all live slots. Returns #live."""
+        if not any(self.slot_live):
+            return 0
+        t0 = time.perf_counter()
+        self._decode_step()
+        # ONE host sync per step: tokens and positions fetched together
+        toks, pos = torch.stack([self.last_tok[:, 0], self.slot_pos]).tolist()
+        self.n_decode_steps += 1
+        self.decode_s += time.perf_counter() - t0
+        for slot, req in enumerate(self.slot_req):
+            if req is None or not self.slot_live[slot]:
+                continue
+            t = toks[slot]
+            req.out_tokens.append(t)
+            limit_hit = len(req.out_tokens) >= req.max_new_tokens
+            eos_hit = self.eos_id is not None and t == self.eos_id
+            if limit_hit or eos_hit or pos[slot] >= self.max_len - 1:
+                req.done = True
+                self.slot_live[slot] = False
+                self.live_mask[slot] = False
+                self.slot_req[slot] = None
+        return sum(self.slot_live)
+
+    def serve(self, requests: list[Request]) -> list[Request]:
+        """Run a full workload: admit as slots free up, decode until done."""
+        pending = list(requests)
+        done: list[Request] = []
+        inflight: list[Request] = []
+        while pending or inflight:
+            while pending and self.admit(pending[0]):
+                inflight.append(pending.pop(0))
+            self.step()
+            for r in list(inflight):
+                if r.done:
+                    inflight.remove(r)
+                    done.append(r)
+        return done

@@ -1,0 +1,68 @@
+"""The port stands alone: neither `repro_torch` nor chip_smoke.py imports
+JAX or anything of the reference package, and its entry points default to
+the card instead of falling back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_importing_the_port_loads_no_jax():
+    modules = [".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+               for p in sorted(PORT.rglob("*.py"))]
+    modules = [m[:-len(".__init__")] if m.endswith(".__init__") else m
+               for m in modules]
+    code = ("import importlib, sys\n"
+            f"for m in {modules!r}: importlib.import_module(m)\n"
+            "import chip_smoke\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: p.name)
+def test_no_reference_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from repro_torch import bridge
+    from repro_torch.configs import REDUCED
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+    from repro_torch.serve import ServeEngine
+    cfg = REDUCED["granite-3-8b"]
+    params = init_params(0, cfg, device="cpu")
+    for call in (lambda: ServeEngine(cfg, params, batch_slots=1, max_len=8),
+                 lambda: init_params(0, cfg),
+                 lambda: init_cache(cfg, 1, 8),
+                 lambda: bridge.params_from_numpy({"a": [1.0]}),
+                 lambda: serve.main(["--arch", "granite-3-8b", "--reduced"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
