@@ -1,0 +1,81 @@
+"""Benchmark orchestrator of the port — one module per paper figure:
+
+  microbench        Fig. 2 (throughput vs OI), Fig. 3 (op/dtype throughput)
+
+Only the ported modules are registered; the rest of the reference's
+`benchmarks/` comes with later slices of the port.
+
+Run: PYTHONPATH=src python -m repro_torch.benchmarks.run [module ...]
+                                                        [--device DEV]
+
+`--device` defaults to the card (cuda); `--device cpu` runs the plain
+PyTorch versions on the CPU. Asking for the card where there is none
+raises before any module runs.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+from ..device import resolve_device
+
+
+class Report:
+    """Plain-text table/section sink (markdown-ish, CSV-friendly)."""
+
+    def section(self, title: str):
+        print(f"\n## {title}\n")
+
+    def note(self, text: str):
+        print(f"  NOTE: {text}")
+
+    def raw(self, text: str):
+        print(text)
+
+    def table(self, rows: list[dict]):
+        if not rows:
+            print("  (empty)")
+            return
+        cols = list(rows[0].keys())
+        print("| " + " | ".join(cols) + " |")
+        print("|" + "|".join("---" for _ in cols) + "|")
+        for r in rows:
+            print("| " + " | ".join(str(r.get(c, "")) for c in cols) + " |")
+
+
+def main(argv=None) -> int:
+    from . import microbench
+    modules = {"microbench": microbench}
+    ap = argparse.ArgumentParser(prog="repro_torch.benchmarks.run")
+    ap.add_argument("modules", nargs="*", metavar="module",
+                    help=f"any of {list(modules)} (default: all)")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    args = ap.parse_args(argv)
+    unknown = [m for m in args.modules if m not in modules]
+    if unknown:
+        ap.error(f"unknown modules {unknown}; choose from {list(modules)}")
+    device = resolve_device(args.device)
+    names = args.modules or list(modules)
+    report = Report()
+    t0 = time.perf_counter()
+    failed = []
+    for name in names:
+        print(f"\n{'=' * 72}\n= repro_torch.benchmarks.{name} on {device}"
+              f"\n{'=' * 72}")
+        try:
+            modules[name].run(report, device=device)
+        except Exception:  # keep the harness going, report at end
+            import traceback
+            traceback.print_exc()
+            failed.append(name)
+    print(f"\n{'=' * 72}")
+    print(f"done in {time.perf_counter() - t0:.1f}s; "
+          f"{len(names) - len(failed)}/{len(names)} benchmark modules ok"
+          + (f"; FAILED: {failed}" if failed else ""))
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -22,8 +22,12 @@
 // causally dead or outside the window are never loaded. Query tiles run
 // latest first, so the longest causal rows start first. The arithmetic runs
 // on CUDA cores in f32; mma.sync/wgmma tensor-core tiles are later work.
-// Precondition: every query row has at least one unmasked key (true for
-// causal prefill); a row with none gets zeros.
+// A query row with no unmasked key (window > 0 and q_pos >= Skv + window - 1,
+// causal or not) gets what the plain version gives it: every score is
+// -1e30, the softmax is uniform, so the row is the f32 mean of V over keys
+// [0, Skv), cast to q's type. The main kernel skips those rows (and whole
+// query tiles of them), and a second small kernel, launched only when such
+// rows exist, writes them; the normal path is unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -83,6 +87,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KVH);
   const int q_lo = qt * BQ;
+  // rows from q_empty on have no unmasked key: empty_rows_kernel writes them
+  const long long q_empty = window > 0 ? (long long)Skv + window - 1 : Sq;
+  if (q_lo >= q_empty) return;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
   const T* qb = q + b * qs.b + h * qs.h;
@@ -183,7 +190,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qpos = q_lo + ty + 16 * i;
-    if (qpos >= Sq) continue;
+    if (qpos >= Sq || qpos >= q_empty) continue;
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
     T* orow = o + (((size_t)b * Sq + qpos) * H + h) * hd;
 #pragma unroll
@@ -191,6 +198,24 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = tx + 16 * c;
       if (d < hd) orow[d] = from_f32<T>(acc[i][c] * inv);
     }
+  }
+}
+
+// Rows q_pos in [q_empty, Sq) of head h, batch b: the f32 mean of V over
+// keys [0, Skv), one thread per column, summed in key order.
+template <typename T>
+__global__ void empty_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
+                                  int Sq, int Skv, int H, int KVH, int hd,
+                                  Strides vs, int q_empty) {
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int kh = h / (H / KVH);
+  const T* vb = v + b * vs.b + kh * vs.h;
+  for (int d = threadIdx.x; d < hd; d += blockDim.x) {
+    float sum = 0.f;
+    for (int pos = 0; pos < Skv; ++pos) sum += to_f32(vb[pos * vs.s + d]);
+    const T mean = from_f32<T>(sum / static_cast<float>(Skv));
+    for (int qpos = q_empty; qpos < Sq; ++qpos)
+      o[(((size_t)b * Sq + qpos) * H + h) * hd + d] = mean;
   }
 }
 
@@ -250,5 +275,19 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
       ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale)
       : launch_hd<float>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
   if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (window > 0 && (long long)Sq > (long long)Skv + window - 1) {
+    const int q_empty = Skv + window - 1;
+    const dim3 rows_grid(H, B);
+    const int threads = ((hd + 31) / 32) * 32;
+    if (is_bf16)
+      empty_rows_kernel<__nv_bfloat16><<<rows_grid, threads, 0, st>>>(
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KVH, hd, vs, q_empty);
+    else
+      empty_rows_kernel<float><<<rows_grid, threads, 0, st>>>(
+          static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KVH, hd, vs, q_empty);
+    e = cudaGetLastError();
+  }
+  return static_cast<int>(e);
 }

@@ -4,15 +4,24 @@
 A wrapper checks shapes and dtypes, then sends CPU tensors to the plain
 PyTorch version (`ref`) and CUDA tensors to the CUDA kernel, which
 launches or raises: there is no fallback from the card to the plain path.
+The streaming kernels (`va`, `gemv`, `reduction`, `stream_ops`) take the
+flat 1-D arrays of `repro.kernels.ops` and return what it returns; the
+kernels mask their own ragged edges, so nothing is padded.
 """
 
 from __future__ import annotations
+
+import numbers
 
 import torch
 
 from . import decode_attention as _da
 from . import flash_attention as _fa
+from . import gemv as _gemv
+from . import microbench as _mb
+from . import reduction as _red
 from . import ref
+from . import va as _va
 
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -64,6 +73,67 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     return _fa.flash_attention(q, k, v, causal, window)
 
 
+def _check_vector(name, dtypes, *tensors):
+    for t in tensors:
+        if t.dim() != 1:
+            raise ValueError(f"{name}: want a 1-D array, got shape "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in dtypes:
+            raise ValueError(f"{name}: dtype must be one of {dtypes}, got "
+                             f"{t.dtype}")
+
+
+def va(a, b):
+    """a + b over (n,) arrays of one dtype: int32 (wraps), f32 or bf16."""
+    _check_vector("va", tuple(_va.DTYPE_CODE), a, b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise ValueError(f"va: a and b differ: {tuple(a.shape)} {a.dtype}, "
+                         f"{tuple(b.shape)} {b.dtype}")
+    if a.device.type == "cpu":
+        return ref.va(a, b)
+    return _va.va(a, b)
+
+
+def gemv(A, x):
+    """y = A x for A (M, K), x (K,), each f32 or bf16; f32 accumulation,
+    y (M,) in A's dtype."""
+    dtypes = tuple(_gemv.DTYPE_CODE)
+    if A.dim() != 2 or A.dtype not in dtypes:
+        raise ValueError(f"gemv: A must be 2-D of one of {dtypes}, got "
+                         f"{tuple(A.shape)} {A.dtype}")
+    _check_vector("gemv", dtypes, x)
+    if x.shape[0] != A.shape[1]:
+        raise ValueError(f"gemv: x {tuple(x.shape)} does not match A "
+                         f"{tuple(A.shape)}")
+    if A.device.type == "cpu":
+        return ref.gemv(A, x)
+    return _gemv.gemv(A, x)
+
+
+def reduction(x):
+    """Sum of an (n,) int32, f32 or bf16 array as a 0-dim f32 tensor."""
+    _check_vector("reduction", tuple(_red.DTYPE_CODE), x)
+    if x.device.type == "cpu":
+        return ref.reduction(x)
+    return _red.reduction(x)
+
+
+def stream_ops(x, ops_per_elem: int):
+    """The Fig. 2 microbenchmark: `ops_per_elem` dependent adds of i + 1
+    on each element of an (n,) int32 (wrapping) or f32 array."""
+    _check_vector("stream_ops", tuple(_mb.DTYPE_CODE), x)
+    if isinstance(ops_per_elem, bool) or not isinstance(
+            ops_per_elem, numbers.Integral) or ops_per_elem < 0:
+        raise ValueError(f"stream_ops: ops_per_elem must be an int >= 0, "
+                         f"got {ops_per_elem!r}")
+    ops_per_elem = int(ops_per_elem)
+    if x.device.type == "cpu":
+        return ref.microbench_stream(x, ops_per_elem)
+    return _mb.stream_ops(x, ops_per_elem)
+
+
 def kernels():
     """name -> launch counter object of every kernel the port has."""
-    return {"decode_attention": _da.KERNEL, "flash_attention": _fa.KERNEL}
+    return {"decode_attention": _da.KERNEL, "flash_attention": _fa.KERNEL,
+            "va": _va.KERNEL, "reduction": _red.KERNEL,
+            "stream_ops": _mb.KERNEL, "gemv": _gemv.KERNEL}

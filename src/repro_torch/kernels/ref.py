@@ -4,7 +4,8 @@ Each computes the same function as its CUDA kernel, with the same
 signature as its wrapper in `ops`. `ops` sends CPU tensors here; on the
 card they serve only as the oracle the kernels are held to (tests and
 `chip_smoke.py`). Softmax runs in f32 (or f64 for f64 inputs) and the
-result is cast to q's dtype, as in `repro.kernels.ref`.
+result is cast to q's dtype, as in `repro.kernels.ref`; `gemv` and
+`reduction` accumulate in f32 as their oracles there do.
 """
 
 from __future__ import annotations
@@ -55,3 +56,29 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     s = s.masked_fill(~mask, -1e30)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, _wide(v)).to(q.dtype)
+
+
+def va(a, b):
+    """Elementwise a + b (int32 wraps, bf16 rounds once)."""
+    return a + b
+
+
+def gemv(A, x):
+    """A: (M, K); x: (K,) -> (M,) in A's dtype, accumulated in f32."""
+    return (A.float() @ x.float()).to(A.dtype)
+
+
+def reduction(x):
+    """Sum of every element as a 0-dim f32 tensor, f32 accumulation."""
+    return torch.sum(x.float())
+
+
+def microbench_stream(x, ops_per_elem: int):
+    """Fig-2 microbenchmark: `ops_per_elem` dependent adds of i + 1 per
+    element, in x's dtype (int32 wraps)."""
+    if ops_per_elem == 0:
+        return x.clone()
+    y = x
+    for i in range(ops_per_elem):
+        y = y + (i + 1)
+    return y

@@ -116,6 +116,28 @@ def test_flash_attention(sq, skv, h, kvh, hd, causal, window, dtype):
                                      window=window, interpret=True), tol)
 
 
+@pytest.mark.parametrize("sq,skv,causal,window", [
+    (40, 16, True, 4),       # causal, rows 19..39 see no key
+    (300, 100, False, 32),   # windowed cross-attention, rows 131..299
+])
+def test_flash_attention_rows_without_keys(sq, skv, causal, window):
+    """Rows with no unmasked key (q_pos >= Skv + window - 1): every score
+    is -1e30, the softmax is uniform, and the row is the mean of V over
+    all Skv keys, as in the reference oracle. The CUDA kernel is held to
+    this in chip_smoke.py phase 3."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(
+        22, jnp.float32, (2, sq, 4, 32), (2, skv, 2, 32), (2, skv, 2, 32))
+    got = ops.flash_attention(qt, kt, vt, causal=causal, window=window)
+    _close(got, jref.flash_attention(qj, kj, vj, causal=causal,
+                                     window=window), 1e-5)
+    first = skv + window - 1
+    mean = vt.mean(dim=1).repeat_interleave(2, dim=1)      # (B, H, hd)
+    torch.testing.assert_close(
+        got[:, first:], mean[:, None].expand(-1, sq - first, -1, -1),
+        rtol=1e-5, atol=1e-6)
+    assert not torch.allclose(got[:, first - 1], mean)
+
+
 def test_flash_attention_matches_model_prefill():
     """The prefill branch's function: the reference model's
     `_plain_attention` (causal, window from the config)."""
@@ -162,4 +184,5 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                             torch.zeros(1, 6, 2, 16),
                             torch.zeros(1, 6, 2, 16))
     assert kda.KERNEL.launches == 0 and kfa.KERNEL.launches == 0
-    assert set(ops.kernels()) == {"decode_attention", "flash_attention"}
+    assert set(ops.kernels()) == {"decode_attention", "flash_attention",
+                                  "va", "reduction", "stream_ops", "gemv"}
