@@ -51,6 +51,22 @@ Phases, each of which raises (exit code != 0) on failure:
    microbench` (its `main`, in process) on the card: it must pass, and the
    counters must show its sweep (k = 1, 4, 16) went through the stream_ops
    kernel and nothing else.
+8. The PrIM bank-local kernels at PrIM's sizes, through `kernels.ops`
+   (counters zeroed before, read after): `ops.scan` on 2^27 int32 in
+   [-100, 100) (one scan_blocks and one add_offsets launch), `ops.histogram`
+   on 2^26 uint32 < 2^12 at 256 and 4096 bins (HST-S, HST-L: two
+   histogram launches), `ops.ts_min` on a 2^26 int32 series with m = 8
+   (one ts_dists launch), `ops.transpose` of 8192 x 8192 int32 (one
+   transpose launch). Each result is held to its plain version on the same
+   tensors: scan, histogram, ts distances and transpose bit-exact, the ts
+   index equal to the plain argmin. Edge cases at small sizes: ragged and
+   unaligned lengths, n < 128, f32 scan data (within 1e-5 of max |prefix|
+   of an f64 cumsum and no further than the plain version), out-of-range
+   histogram values (dropped), a planted ts tie (first index), one window
+   (m = n), m = 512, 8191 x 8193. Then each kernel is timed beside its
+   bound, its plain version and one library call (torch.cumsum for the
+   whole scan, the broadcast add, torch.histc, A.t().contiguous(); none
+   for ts).
 
 The second-to-last line is the `kernels` JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -59,6 +75,7 @@ The second-to-last line is the `kernels` JSON; the last line is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import re
 import statistics
@@ -121,6 +138,15 @@ CALL_TOL = 1e-4
 # (measured on the H100: kernels 2.35e-2, plain 4.10e-2).
 LOGIT_F64_FACTOR = 1.0
 SERVE_LAYERS = 40       # granite-3-8b at full depth
+# phase 8: PrIM's sizes (REF_N of prim/scan_ssa.py, hst.py, ts.py, trns.py)
+PRIM_SCAN_N = 1 << 27
+PRIM_HST_N = 1 << 26
+HST_BINS = (256, 4096)      # HST-S, HST-L
+PRIM_TS_N, TS_M = 1 << 26, 8
+PRIM_TRNS = 8192            # 8192 x 8192
+# f32 scan: largest error against an f64 cumsum, as a share of max |prefix|
+# (the band tests/test_torch_prim_kernels.py holds the plain scan to)
+SCAN_F32_TOL = 1e-5
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -172,6 +198,10 @@ def bound(nbytes: float, ops_: float, rate: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops_ / rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_err(got, want) -> float:
+    return float((got.double() - want.double()).abs().max())
 
 
 def check_close(name, dtype, got, want) -> float:
@@ -640,10 +670,13 @@ def streaming_kernels(ops, ref, kernels, int_rate):
 
     rows = {}
     a, b = va_sets[0]
-    if not torch.equal(va_out, ref.va(a, b)):
+    want = ref.va(a, b)
+    va_err = max_abs_err(va_out, want)
+    if not torch.equal(va_out, want):
         raise AssertionError("va at 2^27 int32: not bit-exact")
+    del want
     rb, rf = bound(3 * 4 * n, n, int_rate)
-    rows["va"] = {"case": "n=2^27 int32", "max_abs_err": 0.0,
+    rows["va"] = {"case": "n=2^27 int32", "max_abs_err": va_err,
                   "bound_ms": rb, "bound_by": rf,
                   "ms": median_ms(ops.va, va_sets),
                   "plain_ms": median_ms(ref.va, va_sets),
@@ -699,13 +732,16 @@ def streaming_kernels(ops, ref, kernels, int_rate):
     curve = []
     for k in FIG2_K:
         got = ops.stream_ops(sets[0][0], k)
-        if not torch.equal(got, ref.microbench_stream(sets[0][0], k)):
+        want = ref.microbench_stream(sets[0][0], k)
+        err = max_abs_err(got, want)
+        if not torch.equal(got, want):
             raise AssertionError(f"stream_ops k={k} at 2^27: not bit-exact")
-        del got
+        del got, want
         ms = median_ms(lambda t: ops.stream_ops(t, k), sets)
         rb, rf = bound(8 * n, k * n, int_rate)
         curve.append({
-            "k": k, "oi_op_per_byte": k / 4.0, "ms": ms, "bound_ms": rb,
+            "k": k, "oi_op_per_byte": k / 4.0, "ms": ms, "max_abs_err": err,
+            "bound_ms": rb,
             "bound_by": rf, "gops": k * n / ms / 1e6,
             "gb_per_s": 8 * n / ms / 1e6, "share_of_bound": rb / ms,
             "plain_ms": median_ms(lambda t: ref.microbench_stream(t, k),
@@ -714,7 +750,8 @@ def streaming_kernels(ops, ref, kernels, int_rate):
     # no library call does this work: x + k(k+1)/2 gives the same values
     # with one add, and the k adds are the measurement
     rows["stream_ops"] = {"case": f"n=2^27 int32 k={STREAM_ROW_K}",
-                          "max_abs_err": 0.0, "bound_ms": pt["bound_ms"],
+                          "max_abs_err": pt["max_abs_err"],
+                          "bound_ms": pt["bound_ms"],
                           "bound_by": pt["bound_by"], "ms": pt["ms"],
                           "plain_ms": pt["plain_ms"], "library_ms": None}
     del sets
@@ -768,6 +805,272 @@ def microbench_entry_point(kernels):
         raise AssertionError("the entry point did not run through the "
                              "stream_ops kernel alone")
     return launches
+
+
+# --------------------------------------------------------------------- #
+# phase 8: the PrIM bank-local kernels at PrIM's sizes
+# --------------------------------------------------------------------- #
+
+def int32_randint(gen, lo, hi, *shape):
+    return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+
+def prim_edge_checks(ops, ref, gen):
+    """Small cases: ragged and unaligned lengths, n < 128, f32 scan data,
+    out-of-range histogram values, a planted ts tie, m = n, m = 512,
+    8191 x 8193."""
+    from repro_torch.kernels import scan_block, ts
+    dev = "cuda"
+    ints = functools.partial(int32_randint, gen)
+    for n in (1, 100, 8191, 8192, 8193, 50_000, (1 << 20) + 3):
+        x = ints(-100, 100, n + 1)
+        for v in (x[:n], x[1:]):          # 16-byte aligned, and not
+            got = ops.scan(v)
+            exact = torch.cumsum(v.long(), 0).to(torch.int32)
+            if not (torch.equal(got, ref.scan(v)) and torch.equal(got, exact)):
+                raise AssertionError(f"scan int32 n={n}: not exact")
+            (sk, tk), (sp, tp) = scan_block.scan_blocks(v), ref.scan_blocks(v)
+            if not (torch.equal(sk, sp) and torch.equal(tk, tp)):
+                raise AssertionError(f"scan_blocks int32 n={n}: not exact")
+    n = (1 << 20) + 3
+    xf = torch.randn(n + 1, generator=gen, device=dev)
+    for what, v in (("aligned", xf[:n]), ("unaligned", xf[1:])):
+        got, plain = ops.scan(v), ref.scan(v)
+        exact = torch.cumsum(v.double(), 0)
+        scale = float(exact.abs().max())
+        err = float((got.double() - exact).abs().max())
+        err_plain = float((plain.double() - exact).abs().max())
+        log(f"  scan f32 n=2^20+3 {what}: max err vs f64 {err:.6g} (plain "
+            f"{err_plain:.6g}, max |prefix| {scale:.6g}), bit-equal to the "
+            f"plain version: {torch.equal(got, plain)}")
+        if err > SCAN_F32_TOL * scale or err > err_plain:
+            raise AssertionError(f"scan f32 n={n} {what}: too far from f64")
+    s = torch.randn(n + 1, generator=gen, device=dev) * 1000
+    off = torch.randn(-(-n // ref.SCAN_TILE), generator=gen, device=dev) * 1e4
+    for v in (s[:n], s[1:]):
+        for dt in (torch.float32, torch.int32):
+            if not torch.equal(scan_block.add_offsets(v, off, dt),
+                               ref.add_offsets(v, off, dt)):
+                raise AssertionError(f"add_offsets {dt}: not exact")
+
+    oob = torch.tensor([1, 4095, 4096, 70000, 2 ** 32 - 1]).to(torch.int32)
+    oob = oob.to(dev).view(torch.uint32)
+    got = ops.histogram(oob, 256)
+    if not (torch.equal(got, ref.histogram(oob, 256)) and int(got.sum()) == 2
+            and int(got[0]) == 1 and int(got[255]) == 1):
+        raise AssertionError(f"histogram out of range: {got.nonzero()}")
+    wide = ints(-2 ** 31, 2 ** 31 - 1, 100_003)   # every bit pattern
+    for bins in (256, 4096):
+        if not torch.equal(ops.histogram(wide, bins), ref.histogram(wide, bins)):
+            raise AssertionError(f"histogram wrapping products, bins={bins}")
+    for n in (1, 100, 4097, (1 << 20) + 3):
+        x = ints(0, 1 << 12, n + 1)
+        for v in (x[:n], x[1:], x[:n].view(torch.uint32)):
+            for bins in (1, 3, 256, 1000, 4096, 8192):
+                got = ops.histogram(v, bins)
+                if not torch.equal(got, ref.histogram(v, bins)) \
+                        or int(got.sum()) != n:
+                    raise AssertionError(f"histogram n={n} bins={bins}")
+
+    for n, m, dt in ((100, 8, torch.int32), (5000, 8, torch.float32),
+                     (4103, 512, torch.int32), (4103, 512, torch.float32),
+                     (300, 300, torch.int32), (512, 512, torch.float32),
+                     (1, 1, torch.float32), (2049, 16, torch.int32)):
+        if dt == torch.int32:
+            series, query = ints(-100, 100, n), ints(-100, 100, m)
+        else:
+            series = torch.randn(n, generator=gen, device=dev) * 10
+            query = torch.randn(m, generator=gen, device=dev) * 10
+        dk, dp = ts.ts_dists(series, query), ref.ts_dists(series, query)
+        d, i = ops.ts_min(series, query)
+        if not torch.equal(dk, dp) or int(i) != int(torch.argmin(dp)) \
+                or not torch.equal(d, dp.min()):
+            raise AssertionError(f"ts n={n} m={m} {dt}: not exact")
+    series, query = ints(-100, 100, 1 << 20), ints(-100, 100, TS_M)
+    for p in (1000, 500_000):            # the same window twice: a tie at 0
+        series[p:p + TS_M] = query
+    d, i = ops.ts_min(series, query)
+    if float(d) != 0.0 or int(i) != 1000 or \
+            int(i) != int(torch.argmin(ref.ts_dists(series, query))):
+        raise AssertionError(f"ts tie: got ({float(d)}, {int(i)}), want "
+                             f"(0, 1000)")
+
+    for m, n in ((8191, 8193), (1, 1), (5, 300), (33, 31), (128, 128)):
+        for dt in (torch.float32, torch.int32):
+            A = ints(-1000, 1000, m, n).to(dt)
+            if not torch.equal(ops.transpose(A), A.t()):
+                raise AssertionError(f"transpose {m}x{n} {dt}: not exact")
+    log("  edge cases: scan, histogram, ts and transpose agree on ragged, "
+        "unaligned, small, out-of-range, tied and m = n inputs")
+
+
+def prim_kernels(ops, ref, kernels, int_rate):
+    """Phase 8. Returns ({kernel: row}, launches of the ops path run)."""
+    from repro_torch.kernels import histogram, scan_block, trns, ts
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    prim_edge_checks(ops, ref, gen)
+    ints = functools.partial(int32_randint, gen)
+
+    scan_sets = [(ints(-100, 100, PRIM_SCAN_N),) for _ in range(2)]
+    hst_sets = [(ints(0, 1 << 12, PRIM_HST_N).view(torch.uint32),)
+                for _ in range(2)]
+    ts_sets = [(ints(-100, 100, PRIM_TS_N), ints(-100, 100, TS_M))
+               for _ in range(2)]
+    trns_sets = [(ints(-1000, 1000, PRIM_TRNS, PRIM_TRNS),) for _ in range(2)]
+    torch.cuda.synchronize()
+
+    # the path: each entry point at its PrIM size, counted
+    for kern in kernels.values():
+        kern.launches = 0
+    scan_out = ops.scan(*scan_sets[0])
+    hst_out = [ops.histogram(*hst_sets[0], b) for b in HST_BINS]
+    ts_out = ops.ts_min(*ts_sets[0])
+    trns_out = ops.transpose(*trns_sets[0])
+    torch.cuda.synchronize()
+    launches = {name: kern.launches for name, kern in kernels.items()}
+    want = {name: 0 for name in kernels}
+    want.update(scan_blocks=1, add_offsets=1, histogram=len(HST_BINS),
+                ts_dists=1, transpose=1)
+    log(f"  launches {launches}")
+    if launches != want:
+        raise AssertionError(f"phase 8 launches {launches}, want {want}")
+
+    # each kernel and the whole path against the plain versions on the
+    # path's own tensors; errs: kernel -> max |kernel - plain|
+    errs = {}
+    x = scan_sets[0][0]
+    if not torch.equal(scan_out, ref.scan(x)):
+        raise AssertionError("scan at 2^27 int32: not bit-exact")
+    (sk, tk), (sp, tp) = scan_block.scan_blocks(x), ref.scan_blocks(x)
+    errs["scan_blocks"] = max(max_abs_err(sk, sp), max_abs_err(tk, tp))
+    off = ref.tile_offsets(tk)
+    ak = scan_block.add_offsets(sk, off, torch.int32)
+    ap = ref.add_offsets(sk, off, torch.int32)
+    errs["add_offsets"] = max_abs_err(ak, ap)
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp)
+            and torch.equal(ak, ap)):
+        raise AssertionError(f"scan pair at 2^27 int32: not bit-exact "
+                             f"(scan_blocks {errs['scan_blocks']}, "
+                             f"add_offsets {errs['add_offsets']})")
+    del sk, tk, sp, tp, off, ak, ap
+    h = hst_sets[0][0]
+    hst_errs = []
+    for b, got in zip(HST_BINS, hst_out):
+        want = ref.histogram(h, b)
+        hst_errs.append(max_abs_err(got, want))
+        if not torch.equal(got, want) or int(got.sum()) != PRIM_HST_N:
+            raise AssertionError(f"histogram at 2^26, {b} bins: not exact")
+    series, query = ts_sets[0]
+    dk, dp = ts.ts_dists(series, query), ref.ts_dists(series, query)
+    ip = torch.argmin(dp)
+    errs["ts_dists"] = max_abs_err(dk, dp)
+    if not torch.equal(dk, dp) or int(ts_out[1]) != int(ip) \
+            or not torch.equal(ts_out[0], dp[ip]):
+        raise AssertionError("ts at 2^26, m=8: not bit-exact")
+    want = trns_sets[0][0].t()
+    errs["transpose"] = max_abs_err(trns_out, want)
+    if not torch.equal(trns_out, want):
+        raise AssertionError("transpose 8192x8192: not exact")
+    del scan_out, hst_out, trns_out, dk, dp, want
+    torch.cuda.empty_cache()
+
+    f32 = PEAK_FLOPS[torch.float32]
+    n, tiles = PRIM_SCAN_N, PRIM_SCAN_N // ref.SCAN_TILE
+    rows = {}
+    rb, rf = bound(8 * n + 4 * tiles, n, f32)
+    cumsum_ms = median_ms(lambda t: torch.cumsum(t, 0, dtype=torch.float32),
+                          scan_sets)
+    rows["scan_blocks"] = {
+        "case": "n=2^27 int32 [-100,100)",
+        "max_abs_err": errs["scan_blocks"],
+        "bound_ms": rb, "bound_by": rf,
+        "ms": median_ms(scan_block.scan_blocks, scan_sets),
+        "plain_ms": median_ms(ref.scan_blocks, scan_sets, reps=3, per_rep=2),
+        "library_ms": cumsum_ms,
+        "library_call": "torch.cumsum(x, 0, dtype=torch.float32): the whole "
+                        "scan, both phases"}
+    add_sets = [(s, ref.tile_offsets(t)) for s, t in
+                (scan_block.scan_blocks(*xs) for xs in scan_sets)]
+    rb, rf = bound(8 * n + 4 * tiles, n, f32)
+    rows["add_offsets"] = {
+        "case": "n=2^27 f32 scans + offsets -> int32",
+        "max_abs_err": errs["add_offsets"],
+        "bound_ms": rb, "bound_by": rf,
+        "ms": median_ms(lambda s, o: scan_block.add_offsets(s, o, torch.int32),
+                        add_sets),
+        "plain_ms": median_ms(lambda s, o: ref.add_offsets(s, o, torch.int32),
+                              add_sets, reps=3, per_rep=2),
+        "library_ms": median_ms(
+            lambda s, o: s.view(-1, ref.SCAN_TILE) + o[:, None], add_sets),
+        "library_call": "scans.view(-1, 8192) + offsets[:, None]"}
+    del add_sets
+    whole = {"ms": median_ms(ops.scan, scan_sets),
+             "plain_ms": median_ms(ref.scan, scan_sets, reps=3, per_rep=2),
+             "library_ms": cumsum_ms}
+    del scan_sets
+    torch.cuda.empty_cache()
+
+    hst_rows = []
+    hf_sets = [(t.view(torch.int32).float(),) for (t,) in hst_sets]
+    for b, err in zip(HST_BINS, hst_errs):
+        got = histogram.histogram(h, b)
+        lib = torch.histc(hf_sets[0][0], bins=b, min=0, max=1 << 12)
+        if not torch.equal(lib.to(torch.int32), got):
+            raise AssertionError(f"torch.histc gives other bins at {b}")
+        rb, rf = bound(4 * PRIM_HST_N + 4 * b, PRIM_HST_N, int_rate)
+        hst_rows.append({
+            "case": f"n=2^26 uint32 < 2^12, {b} bins", "max_abs_err": err,
+            "bound_ms": rb, "bound_by": rf,
+            "ms": median_ms(lambda t: histogram.histogram(t, b), hst_sets),
+            "plain_ms": median_ms(lambda t: ref.histogram(t, b), hst_sets,
+                                  reps=3, per_rep=2),
+            "library_ms": median_ms(
+                lambda t: torch.histc(t, bins=b, min=0, max=1 << 12), hf_sets),
+            "library_call": "torch.histc of an f32 copy over [0, 4096)"})
+    rows["histogram"] = hst_rows[0]
+    del hst_sets, hf_sets
+
+    nwin = PRIM_TS_N - TS_M + 1
+    rb, rf = bound(4 * (PRIM_TS_N + TS_M + nwin), 3 * TS_M * nwin, f32)
+    rows["ts_dists"] = {
+        "case": f"n=2^26 int32, m={TS_M}", "max_abs_err": errs["ts_dists"],
+        "bound_ms": rb, "bound_by": rf,
+        "ms": median_ms(ts.ts_dists, ts_sets),
+        "plain_ms": median_ms(ref.ts_dists, ts_sets, reps=3, per_rep=2),
+        "library_ms": None,
+        "library_call": "none: no single call computes the windowed "
+                        "distances with the same arithmetic"}
+    ts_whole = median_ms(ops.ts_min, ts_sets)
+    del ts_sets
+
+    rb, rf = bound(8 * PRIM_TRNS * PRIM_TRNS, 0, f32)
+    rows["transpose"] = {
+        "case": "8192x8192 int32", "max_abs_err": errs["transpose"],
+        "bound_ms": rb, "bound_by": rf,
+        "ms": median_ms(trns.transpose, trns_sets),
+        "plain_ms": median_ms(ref.trns, trns_sets),
+        "library_ms": median_ms(lambda A: A.t().contiguous(), trns_sets),
+        "library_call": "A.t().contiguous() (also the plain version)"}
+    del trns_sets
+    torch.cuda.empty_cache()
+
+    for name, r in rows.items():
+        log(f"  {name} {r['case']}: " + ", ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k != "case"))
+    r = hst_rows[1]
+    log(f"  histogram {r['case']}: " + ", ".join(
+        f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+        for k, v in r.items() if k != "case"))
+    log(f"  ops.scan whole (both kernels + the fixed-order scan of the "
+        f"{tiles} tile totals on the card), n=2^27 int32: ms={whole['ms']:.6g}, "
+        f"plain_ms={whole['plain_ms']:.6g}, torch.cumsum "
+        f"ms={whole['library_ms']:.6g}")
+    log(f"  ops.ts_min whole (ts_dists + torch.argmin), n=2^26, m={TS_M}: "
+        f"ms={ts_whole:.6g}")
+    return rows, launches
 
 
 def main() -> int:
@@ -828,20 +1131,32 @@ def main() -> int:
         "microbench")
     launches7 = microbench_entry_point(kernels)
 
+    log("phase 8: PrIM bank-local kernels at PrIM's sizes, through ops")
+    prim_rows, launches8 = prim_kernels(ops, ref, kernels, int_rate)
+
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
     launches["stream_ops"] = launches7["stream_ops"]
+    for name in prim_rows:
+        launches[name] = launches8[name]
+    stream_rows.update(prim_rows)
     for name in ("decode_attention", "flash_attention"):
         # the bf16 row at the main path's first shape
         stream_rows[name] = next(r for r in rows[name]
                                  if r["dtype"] == "bfloat16" and "ms" in r)
-    source = {"stream_ops": "microbench"}
+    source = {"stream_ops": "microbench", "scan_blocks": "scan",
+              "add_offsets": "scan", "ts_dists": "ts"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:64",
                 "flash_attention": "src/repro/kernels/flash_attention.py:79",
                 "va": "src/repro/kernels/va.py:22",
                 "reduction": "src/repro/kernels/reduction.py:28",
                 "stream_ops": "src/repro/kernels/microbench.py:27",
-                "gemv": "src/repro/kernels/gemv.py:32"}
+                "gemv": "src/repro/kernels/gemv.py:32",
+                "scan_blocks": "src/repro/kernels/scan_block.py:33",
+                "add_offsets": "src/repro/kernels/scan_block.py:56",
+                "histogram": "src/repro/kernels/histogram.py:36",
+                "ts_dists": "src/repro/kernels/ts.py:30",
+                "transpose": "src/repro/kernels/trns.py:21"}
     line = []
     for name in kernels:
         r = stream_rows[name]

@@ -11,6 +11,7 @@ source never loads a stale build. All sources compile in parallel, one
 pointers and PyTorch's current stream, the C function returns
 `cudaGetLastError()`, and a non-zero code raises. `launches` counts the
 launches that went through, so a run can show its path used the kernel.
+`check_cuda` holds the preconditions every wrapper checks before a launch.
 """
 
 from __future__ import annotations
@@ -93,6 +94,17 @@ def library(stem: str) -> ctypes.CDLL:
     if stem not in _LIBS:
         build_all()
     return _LIBS[stem]
+
+
+def check_cuda(name: str, *tensors, contiguous: bool = True) -> None:
+    """Raise unless `tensors` are CUDA tensors on one device, and
+    contiguous unless `contiguous` is false."""
+    if not all(t.is_cuda for t in tensors):
+        raise ValueError(f"{name} kernel needs CUDA tensors")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    if contiguous and not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: tensors must be contiguous")
 
 
 class CudaKernel:

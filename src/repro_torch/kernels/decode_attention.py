@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("decode_attention", "decode_attention",
@@ -29,12 +29,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     that would cost a host sync). All on one CUDA device, contiguous;
     f32 or bf16. Returns (B,H,hd) in q's dtype."""
     tensors = (q, k, v, lengths)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("decode_attention kernel needs CUDA tensors")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("decode_attention: tensors on different devices")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("decode_attention: tensors must be contiguous")
+    check_cuda("decode_attention", *tensors)
     b, h, hd = q.shape
     w, kvh = k.shape[1], k.shape[2]
     if h // kvh > MAX_GROUP or hd > MAX_HEAD_DIM or hd % 8:

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("flash_attention", "flash_attention",
@@ -27,10 +27,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     unit stride on hd (other strides are free); one CUDA device; f32 or
     bf16. Returns a contiguous (B,Sq,H,hd) in q's dtype."""
     tensors = (q, k, v)
-    if not all(t.is_cuda for t in tensors):
-        raise ValueError("flash_attention kernel needs CUDA tensors")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError("flash_attention: tensors on different devices")
+    check_cuda("flash_attention", *tensors, contiguous=False)
     if any(t.stride(-1) != 1 for t in tensors):
         raise ValueError("flash_attention: head_dim must be contiguous")
     b, sq, h, hd = q.shape

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("gemv", "gemv", [_P, _P, _P, _I, _I, _I, _I, _P])
@@ -23,12 +23,7 @@ DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
 def gemv(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel. A: contiguous (M, K), x: contiguous (K,), each f32
     or bf16, on one CUDA device; M >= 1. Returns (M,) in A's dtype."""
-    if not (A.is_cuda and x.is_cuda):
-        raise ValueError("gemv kernel needs CUDA tensors")
-    if A.device != x.device:
-        raise ValueError("gemv: tensors on different devices")
-    if not (A.is_contiguous() and x.is_contiguous()):
-        raise ValueError("gemv: tensors must be contiguous")
+    check_cuda("gemv", A, x)
     m, k = A.shape
     if not (1 <= m < 2 ** 31 - 64 and k < 2 ** 31):
         raise ValueError(f"gemv kernel takes 1 <= M < 2^31 - 64 and "

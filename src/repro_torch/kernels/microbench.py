@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("microbench", "stream_ops", [_P, _P, _L, _I, _I, _P])
@@ -25,10 +25,7 @@ DTYPE_CODE = {torch.int32: 0, torch.float32: 1}
 def stream_ops(x: torch.Tensor, ops_per_elem: int) -> torch.Tensor:
     """Launch the kernel. x: contiguous (n,) int32 or f32 on a CUDA device;
     ops_per_elem >= 0. Returns a new array of x's shape and dtype."""
-    if not x.is_cuda:
-        raise ValueError("stream_ops kernel needs a CUDA tensor")
-    if not x.is_contiguous():
-        raise ValueError("stream_ops: tensor must be contiguous")
+    check_cuda("stream_ops", x)
     if not 0 <= ops_per_elem < 2 ** 31:
         raise ValueError(f"stream_ops: ops_per_elem {ops_per_elem} out of "
                          f"range")

@@ -6,7 +6,8 @@ PyTorch version (`ref`) and CUDA tensors to the CUDA kernel, which
 launches or raises: there is no fallback from the card to the plain path.
 The streaming kernels (`va`, `gemv`, `reduction`, `stream_ops`) take the
 flat 1-D arrays of `repro.kernels.ops` and return what it returns; the
-kernels mask their own ragged edges, so nothing is padded.
+kernels mask their own ragged edges, so nothing is padded. So do the PrIM
+bank-local kernels behind `scan`, `histogram`, `ts_min` and `transpose`.
 """
 
 from __future__ import annotations
@@ -18,9 +19,13 @@ import torch
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import gemv as _gemv
+from . import histogram as _hst
 from . import microbench as _mb
 from . import reduction as _red
 from . import ref
+from . import scan_block as _scan
+from . import trns as _trns
+from . import ts as _ts
 from . import va as _va
 
 DTYPES = (torch.float32, torch.bfloat16)
@@ -132,8 +137,66 @@ def stream_ops(x, ops_per_elem: int):
     return _mb.stream_ops(x, ops_per_elem)
 
 
+def scan(x):
+    """Inclusive prefix sum of an (n,) int32 or f32 array through SCAN-SSA's
+    phases (f32 inside, result in x's dtype, int32 truncated): the
+    `scan_blocks` kernel, a fixed-order scan of the tile totals on the
+    same device (`ref.tile_offsets`), the `add_offsets` kernel."""
+    _check_vector("scan", tuple(_scan.DTYPE_CODE), x)
+    if x.device.type == "cpu":
+        return ref.scan(x)
+    scans, totals = _scan.scan_blocks(x)
+    return _scan.add_offsets(scans, ref.tile_offsets(totals), x.dtype)
+
+
+def histogram(x, bins: int):
+    """int32 counts of an (n,) uint32 array (or int32, read as the same
+    bits) over `bins` buckets, bucket (x * bins) >> 12 in uint32; buckets
+    >= bins count nowhere. 1 <= bins <= 8192 (the kernel's shared-memory
+    histogram), on the CPU too."""
+    _check_vector("histogram", _hst.DTYPES, x)
+    if isinstance(bins, bool) or not isinstance(bins, numbers.Integral) \
+            or not 1 <= bins <= _hst.MAX_BINS:
+        raise ValueError(f"histogram: bins must be an int in [1, "
+                         f"{_hst.MAX_BINS}], got {bins!r}")
+    bins = int(bins)
+    if x.device.type == "cpu":
+        return ref.histogram(x, bins)
+    return _hst.histogram(x, bins)
+
+
+def ts_min(series, query):
+    """(min squared distance, its window) of query (m,) over the windows of
+    series (n,), each int32 or f32, 1 <= m <= min(n, 512): a 0-dim f32
+    and the first index of the minimum as a 0-dim int32."""
+    _check_vector("ts_min", tuple(_ts.DTYPE_CODE), series, query)
+    n, m = series.numel(), query.numel()
+    if not 1 <= m <= min(n, _ts.MAX_M):
+        raise ValueError(f"ts_min: want 1 <= m <= min(n, {_ts.MAX_M}), got "
+                         f"n {n}, m {m}")
+    if series.device.type == "cpu":
+        d = ref.ts_dists(series, query)
+    else:
+        d = _ts.ts_dists(series, query)
+    i = torch.argmin(d)        # the first minimum, as jnp.argmin
+    return d[i], i.to(torch.int32)
+
+
+def transpose(A):
+    """(M, N) -> (N, M) for an f32 or int32 matrix."""
+    if A.dim() != 2 or A.dtype not in _trns.DTYPES:
+        raise ValueError(f"transpose: want a 2-D array of one of "
+                         f"{_trns.DTYPES}, got {tuple(A.shape)} {A.dtype}")
+    if A.device.type == "cpu":
+        return ref.trns(A)
+    return _trns.transpose(A)
+
+
 def kernels():
     """name -> launch counter object of every kernel the port has."""
     return {"decode_attention": _da.KERNEL, "flash_attention": _fa.KERNEL,
             "va": _va.KERNEL, "reduction": _red.KERNEL,
-            "stream_ops": _mb.KERNEL, "gemv": _gemv.KERNEL}
+            "stream_ops": _mb.KERNEL, "gemv": _gemv.KERNEL,
+            "scan_blocks": _scan.SCAN_BLOCKS,
+            "add_offsets": _scan.ADD_OFFSETS, "histogram": _hst.KERNEL,
+            "ts_dists": _ts.KERNEL, "transpose": _trns.KERNEL}

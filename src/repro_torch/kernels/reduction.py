@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("reduction", "reduction", [_P, _L, _I, _P, _P, _P])
@@ -25,10 +25,7 @@ def reduction(x: torch.Tensor) -> torch.Tensor:
     """Launch the kernel. x: contiguous (n,) of one dtype of `DTYPE_CODE`
     on a CUDA device. Returns a 0-dim f32 tensor on that device (no host
     sync)."""
-    if not x.is_cuda:
-        raise ValueError("reduction kernel needs a CUDA tensor")
-    if not x.is_contiguous():
-        raise ValueError("reduction: tensor must be contiguous")
+    check_cuda("reduction", x)
     partials = torch.empty(MAX_BLOCKS, dtype=torch.float32, device=x.device)
     out = torch.empty((), dtype=torch.float32, device=x.device)
     KERNEL.launch(x.data_ptr(), x.numel(), DTYPE_CODE[x.dtype],

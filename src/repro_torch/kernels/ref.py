@@ -5,7 +5,10 @@ signature as its wrapper in `ops`. `ops` sends CPU tensors here; on the
 card they serve only as the oracle the kernels are held to (tests and
 `chip_smoke.py`). Softmax runs in f32 (or f64 for f64 inputs) and the
 result is cast to q's dtype, as in `repro.kernels.ref`; `gemv` and
-`reduction` accumulate in f32 as their oracles there do.
+`reduction` accumulate in f32 as their oracles there do. The PrIM
+bank-local kernels (`scan_blocks`/`add_offsets`, `histogram`, `ts_dists`,
+`trns`) follow the Pallas bodies' arithmetic step by step, in f32, so the
+CUDA kernels can match them bit for bit on the card.
 """
 
 from __future__ import annotations
@@ -82,3 +85,93 @@ def microbench_stream(x, ops_per_elem: int):
     for i in range(ops_per_elem):
         y = y + (i + 1)
     return y
+
+
+SCAN_ROWS, SCAN_LANES = 64, 128        # the reference's scan tile
+SCAN_TILE = SCAN_ROWS * SCAN_LANES
+HST_SHIFT = 12                         # histogram values are < 2**12
+
+
+def _cumsum_doubling(y):
+    """Inclusive prefix sum along the last axis by doubling: at step
+    s = 1, 2, 4, ... every element from s on adds the one s before it, in
+    f32. The scan kernel adds in this order, so the two agree bit for bit
+    on any data (torch.cumsum's order depends on the device)."""
+    s = 1
+    while s < y.shape[-1]:
+        y = torch.cat((y[..., :s], y[..., s:] + y[..., :-s]), dim=-1)
+        s *= 2
+    return y
+
+
+def scan_blocks(x):
+    """Phase 1 of SCAN-SSA on the flat (n,) array: the row-major inclusive
+    scan of each 64x128 tile in f32, and each tile's total, as the Pallas
+    body computes them (lane scan, row offsets = scan of the row totals
+    minus the row totals, add). The ragged last tile counts as padded with
+    zeros. Returns (scans (n,) f32, totals (ceil(n / 8192),) f32)."""
+    n = x.numel()
+    tiles = -(-n // SCAN_TILE)
+    xf = torch.zeros(tiles * SCAN_TILE, dtype=torch.float32, device=x.device)
+    xf[:n] = x
+    lane = _cumsum_doubling(xf.view(tiles, SCAN_ROWS, SCAN_LANES))
+    row_tot = lane[:, :, -1]
+    row_off = _cumsum_doubling(row_tot) - row_tot
+    full = lane + row_off[:, :, None]
+    return full.reshape(-1)[:n], full[:, -1, -1].contiguous()
+
+
+def tile_offsets(totals):
+    """SCAN-SSA's step between the phases: each tile's exclusive offset as
+    the inclusive scan of the totals minus the totals, in f32, as
+    `repro.kernels.ops.scan` computes it. The scan is the doubling one, on
+    the totals' device: elementwise adds in a fixed order, so every launch
+    and the CPU give the same bits (torch.cumsum on the card is a
+    single-pass scan whose f32 sums depend on timing)."""
+    return _cumsum_doubling(totals) - totals
+
+
+def add_offsets(scans, offsets, dtype=torch.float32):
+    """Phase 3 of SCAN-SSA: scans (n,) f32 plus one f32 offset per 8192
+    elements, cast to `dtype` (f32 -> int32 truncates, as XLA's convert)."""
+    n = scans.numel()
+    pad = offsets.numel() * SCAN_TILE - n
+    full = torch.nn.functional.pad(scans, (0, pad)).view(-1, SCAN_TILE)
+    return (full + offsets[:, None]).view(-1)[:n].to(dtype)
+
+
+def scan(x):
+    """Inclusive prefix sum of an (n,) array through SCAN-SSA's phases,
+    f32 inside, returned in x's dtype (`repro.kernels.ops.scan`)."""
+    scans, totals = scan_blocks(x)
+    return add_offsets(scans, tile_offsets(totals), x.dtype)
+
+
+def histogram(x, bins: int):
+    """int32 counts of (n,) uint32 values (int32 read as the same bits)
+    over `bins` buckets, bucket (x * bins) >> 12 in uint32 arithmetic
+    (wrapping); a bucket >= bins counts nowhere, as in the reference.
+    torch's uint32 has no shifts, so the bits are widened to int64."""
+    if x.dtype == torch.uint32:
+        x = x.view(torch.int32)
+    mask = 0xFFFFFFFF
+    idx = ((x.to(torch.int64) & mask) * bins & mask) >> HST_SHIFT
+    return torch.bincount(idx[idx < bins], minlength=bins).to(torch.int32)
+
+
+def ts_dists(series, query):
+    """f32 squared euclidean distance of query (m,) to each of the
+    n - m + 1 windows of series (n,), summed over j = 0 .. m-1 in order,
+    one shifted slice at a time, as the Pallas body does."""
+    s, q = series.float(), query.float()
+    nwin = s.numel() - q.numel() + 1
+    acc = torch.zeros(nwin, dtype=torch.float32, device=s.device)
+    for j in range(q.numel()):
+        d = s[j:j + nwin] - q[j]
+        acc = acc + d * d
+    return acc
+
+
+def trns(A):
+    """(M, N) -> (N, M)."""
+    return A.t().contiguous()

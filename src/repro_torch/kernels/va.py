@@ -12,7 +12,7 @@ import ctypes
 
 import torch
 
-from ._build import CudaKernel
+from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("va", "va", [_P, _P, _P, _L, _I, _P])
@@ -22,12 +22,7 @@ DTYPE_CODE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 def va(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Launch the kernel. a, b: contiguous (n,) of one dtype of
     `DTYPE_CODE` on one CUDA device. Returns a + b."""
-    if not (a.is_cuda and b.is_cuda):
-        raise ValueError("va kernel needs CUDA tensors")
-    if a.device != b.device:
-        raise ValueError("va: tensors on different devices")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("va: tensors must be contiguous")
+    check_cuda("va", a, b)
     out = torch.empty_like(a)
     KERNEL.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
                   DTYPE_CODE[a.dtype],

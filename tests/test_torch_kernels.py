@@ -185,4 +185,6 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                             torch.zeros(1, 6, 2, 16))
     assert kda.KERNEL.launches == 0 and kfa.KERNEL.launches == 0
     assert set(ops.kernels()) == {"decode_attention", "flash_attention",
-                                  "va", "reduction", "stream_ops", "gemv"}
+                                  "va", "reduction", "stream_ops", "gemv",
+                                  "scan_blocks", "add_offsets", "histogram",
+                                  "ts_dists", "transpose"}
