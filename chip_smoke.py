@@ -8,17 +8,27 @@ Phases, each of which raises (exit code != 0) on failure:
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and cuDNN.
 2. Build: every `src/repro_torch/kernels/csrc/*.cu` with nvcc for sm_90a
-   (one nvcc each, in parallel). Then `cuobjdump -sass` of the built
-   stream_ops library counts the integer adds per element of its k = 128
-   instance, which must be at least 128 (no compiler folded the chain),
-   and the pipes they use give the add rate of the bounds (SMs x lanes x
-   clocks.max.sm).
+   (one nvcc each, in parallel), with registers and spills of each
+   attention kernel. Then `cuobjdump -sass` of the built stream_ops
+   library counts the integer adds per element of its k = 128 instance,
+   which must be at least 128 (no compiler folded the chain), and the
+   pipes they use give the add rate of the bounds (SMs x lanes x
+   clocks.max.sm); and the tensor-core flash instantiations must hold
+   HMMA instructions.
 3. Attention kernels against their plain PyTorch versions, at the serving
    path's shapes and at the reference test sweep's, in f32 and bf16, plus
-   rows with no unmasked key (window > 0, q_pos >= Skv + window - 1),
-   with CUDA-event timings of the kernel, the plain version and one
-   PyTorch library call (scaled_dot_product_attention, a yardstick the
-   port never calls), beside the least time the card could take
+   rows with no unmasked key (window > 0, q_pos >= Skv + window - 1);
+   in bf16 also ragged Sq/Skv at hd 64 and 128, hd 16, 48, 72 and 256,
+   q/k/v views that are not 16-byte aligned, decode lengths inside the
+   first split, on a split boundary and at W not a multiple of the
+   split, and two decode launches compared bit for bit. Each row logs
+   the route (flash) or the split count (decode) and the grid. Timings of
+   the kernel, the plain version and one PyTorch library call
+   (scaled_dot_product_attention, a yardstick the port never calls) by
+   replaying a CUDA graph of the calls (`graph_ms`: the card's time), and
+   of the kernel and the library call launched from Python one after
+   another (`launched_ms`: host time included), and the host time of one
+   kernel call (`host_us`), beside the least time the card could take
    (`bound_ms`).
 4. Full width, 4 layers, f32: granite-3-8b prefill + 8 decode steps through
    the kernels and through the plain versions: every attention call of
@@ -26,13 +36,19 @@ Phases, each of which raises (exit code != 0) on failure:
    the same activations, and each kernel stays within CALL_TOL of f64 or
    no further from it than the plain f32 version; greedy tokens
    identical; the kernels' logits no further from an f64 run than
-   LOGIT_F64_FACTOR times the plain f32 path's.
+   LOGIT_F64_FACTOR times the plain f32 path's. Then full depth in bf16,
+   as phase 5 serves it: a 1000-token prefill + 8 decode steps through the
+   kernels, every call also through the plain version in bf16 and f64;
+   each kernel within TOL of f64 (of the output's scale) or no further
+   from it than the plain bf16 version plus CALL_TOL; every prefill on
+   the tensor-core route; the first-token logits of the kernel path and
+   of the plain bf16 path against an f32 run are logged.
 5. The main path: granite-3-8b at full depth and width in bf16, random
    weights from a seed, `ServeEngine(batch_slots=4, max_len=2048)` serving
    8 requests (prompts of 64-1500 tokens, 32 new tokens each) with
    continuous batching. Launch counters must show every attention call
-   went through the kernels (40 per decode step and 40 per admission) and
-   no other kernel ran.
+   went through the kernels (40 per decode step and 40 per admission),
+   every prefill call on the tensor-core route, and no other kernel ran.
 6. The streaming kernels at the paper's sizes, through `kernels.ops` (the
    entry points a user calls; counters zeroed before, read after): va
    (int32) and reduction (f32) at PrIM's n = 2^27, gemv at granite-3-8b's
@@ -138,6 +154,9 @@ CALL_TOL = 1e-4
 # (measured on the H100: kernels 2.35e-2, plain 4.10e-2).
 LOGIT_F64_FACTOR = 1.0
 SERVE_LAYERS = 40       # granite-3-8b at full depth
+# bf16 full-depth check (phase 4): one prompt of a length inside phase 5's
+# 64-1500 and no multiple of the flash kernels' 64-row tiles
+BF16_PROMPT = 1000
 # phase 8: PrIM's sizes (REF_N of prim/scan_ssa.py, hst.py, ts.py, trns.py)
 PRIM_SCAN_N = 1 << 27
 PRIM_HST_N = 1 << 26
@@ -154,6 +173,21 @@ DECODE_CASES = [
     (2, 8, 2, 64, 1000, 777),
     (1, 4, 4, 128, 512, 512),
     (2, 16, 2, 64, 2048, 1),
+    # the kernel's limits: 16 query heads per KV head at hd 256; hd 8
+    (2, 32, 2, 256, 300, [5, 300]),
+    (1, 2, 1, 8, 50, 50),
+]
+# bf16 only: the tensor-core route's edges (ragged Sq/Skv at hd 64 and
+# 128, hd 16 of the REDUCED configs, 48 and 256) and one bf16 head dim that
+# is no multiple of 16 (72: the CUDA-core route)
+FLASH_BF16_CASES = [
+    (333, 333, 8, 2, 64, True, 0),
+    (200, 457, 8, 4, 128, False, 0),
+    (300, 700, 8, 2, 128, True, 100),
+    (64, 64, 4, 1, 16, True, 0),
+    (100, 77, 4, 4, 48, False, 0),
+    (130, 130, 4, 2, 256, True, 0),
+    (100, 100, 4, 2, 72, True, 0),
 ]
 # (Sq, Skv, H, KVH, hd, causal, window): the path's shapes, then the sweep's
 FLASH_CASES = [
@@ -192,6 +226,49 @@ def median_ms(fn, arg_sets, reps: int = 7, per_rep: int = 10) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, arg_sets, reps: int = 7, per_rep: int = 10) -> float:
+    """Like median_ms, but the `per_rep` calls are captured once in a CUDA
+    graph and replayed: the card's time for the work, without the host's
+    launch gaps (a decode-attention call takes less time on the card than
+    its Python wrapper takes to launch it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*arg_sets[0])                 # warm up off the capture
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            for i in range(per_rep):
+                fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_rep)
+    del graph
+    return statistics.median(times)
+
+
+def host_us(fn, args, n: int = 100) -> float:
+    """Host time (microseconds) of one call: `n` calls timed on the host
+    clock up to the last enqueue, the card left to catch up afterwards.
+    This is what a call costs a host-bound step (the wrapper, its checks
+    and allocations, its launches), apart from the card's time."""
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn(*args)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
 def bound(nbytes: float, ops_: float, rate: float) -> tuple[float, str]:
     """The least time (ms) for moving `nbytes` through HBM and doing `ops_`
     operations at `rate` per second, and which of the two bounds it."""
@@ -220,6 +297,7 @@ def check_close(name, dtype, got, want) -> float:
 # --------------------------------------------------------------------- #
 
 def decode_case(ops, ref, case, dtype, gen, timed):
+    from repro_torch.kernels import decode_attention as kda
     b, h, kvh, hd, w, lengths = case
     dev = "cuda"
     mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
@@ -230,11 +308,18 @@ def decode_case(ops, ref, case, dtype, gen, timed):
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     lens = lens.expand(b).contiguous()
     q, k, v = sets[0]
-    err = check_close("decode_attention", dtype,
-                      ops.decode_attention(q, k, v, lengths),
+    got = ops.decode_attention(q, k, v, lengths)
+    err = check_close("decode_attention", dtype, got,
                       ref.decode_attention(q, k, v, lens))
+    if not torch.equal(got, ops.decode_attention(q, k, v, lengths)):
+        raise AssertionError(f"decode_attention {case} {dtype}: two launches "
+                             f"gave different bits")
+    splits = kda.splits_for(b, kvh, w, q.get_device())
     row = {"case": f"B{b} H{h} KVH{kvh} hd{hd} W{w} len{lengths}",
-           "dtype": str(dtype).split(".")[-1], "max_abs_err": err}
+           "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "splits": splits, "chunk": -(-w // splits),
+           "grid": f"{b}x{kvh}x{splits}={b * kvh * splits}",
+           "bit_identical_twice": True}
     if not timed:
         return row
     isz = torch.finfo(dtype).bits // 8
@@ -242,9 +327,9 @@ def decode_case(ops, ref, case, dtype, gen, timed):
     nbytes = (n_rows * kvh * hd * 2 + 2 * b * h * hd) * isz + 4 * b
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * n_rows * h * hd,
                                              PEAK_FLOPS[dtype])
-    row["ms"] = median_ms(lambda q, k, v: ops.decode_attention(q, k, v, lens),
-                          sets)
-    row["plain_ms"] = median_ms(
+    kernel = lambda q, k, v: ops.decode_attention(q, k, v, lens)
+    row["ms"] = graph_ms(kernel, sets)
+    row["plain_ms"] = graph_ms(
         lambda q, k, v: ref.decode_attention(q, k, v, lens), sets)
     mask = (torch.arange(w, device=dev)[None, :] < lens[:, None])[:, None, None]
 
@@ -252,23 +337,57 @@ def decode_case(ops, ref, case, dtype, gen, timed):
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask, enable_gqa=True)
-    row["library_ms"] = median_ms(library, sets)
+    row["library_ms"] = graph_ms(library, sets)
+    # launched from Python one after another, host time included
+    row["launched_ms"] = median_ms(kernel, sets)
+    row["library_launched_ms"] = median_ms(library, sets)
+    row["host_us"] = host_us(kernel, sets[0])
     return row
 
 
-def flash_case(ops, ref, case, dtype, gen, timed):
+def decode_split_cases():
+    """bf16 decode at the lengths where the split kernel changes hands:
+    inside the first split, on a split boundary and one past it, and at W;
+    at the path's shape and at a W that is no multiple of the split."""
+    from repro_torch.kernels import decode_attention as kda
+    dev = torch.cuda.current_device()
+    b, h, kvh, hd, w = 4, 32, 8, 128, 2048
+    chunk = -(-w // kda.splits_for(b, kvh, w, dev))
+    cases = [(b, h, kvh, hd, w, [chunk // 2, chunk, chunk + 1, w])]
+    b, h, kvh, hd, w = 2, 16, 4, 128, 1000
+    chunk = -(-w // kda.splits_for(b, kvh, w, dev))
+    if w % chunk == 0:
+        raise AssertionError(f"decode W {w} is a multiple of its split "
+                             f"{chunk}: pick another W")
+    return cases + [(b, h, kvh, hd, w, [chunk + 1, w])]
+
+
+def flash_case(ops, ref, case, dtype, gen, timed, misaligned=False):
+    from repro_torch.kernels import flash_attention as kfa
     sq, skv, h, kvh, hd, causal, window = case
     dev = "cuda"
     mk = lambda *s: torch.randn(*s, generator=gen, device=dev).to(dtype)
-    sets = [(mk(1, sq, h, hd), mk(1, skv, kvh, hd), mk(1, skv, kvh, hd))
-            for _ in range(4 if timed else 1)]
+    batch = 2 if misaligned else 1
+    if misaligned:
+        # hd-wide views 4 elements into rows of hd + 8: no 16-byte copies
+        sets = [tuple(mk(batch, n, nh, hd + 8)[..., 4:4 + hd]
+                      for n, nh in ((sq, h), (skv, kvh), (skv, kvh)))]
+    else:
+        sets = [(mk(1, sq, h, hd), mk(1, skv, kvh, hd), mk(1, skv, kvh, hd))
+                for _ in range(4 if timed else 1)]
     q, k, v = sets[0]
-    err = check_close("flash_attention", dtype,
-                      ops.flash_attention(q, k, v, causal, window),
+    got = ops.flash_attention(q, k, v, causal, window)
+    err = check_close("flash_attention", dtype, got,
                       ref.flash_attention(q, k, v, causal, window))
+    if misaligned and not torch.equal(got, ops.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal, window)):
+        raise AssertionError(f"flash_attention {case}: unaligned views and "
+                             f"their contiguous copies disagree")
     row = {"case": f"Sq{sq} Skv{skv} H{h} KVH{kvh} hd{hd} causal{int(causal)} "
-                   f"window{window}",
-           "dtype": str(dtype).split(".")[-1], "max_abs_err": err}
+                   f"window{window}" + (" unaligned views" if misaligned else ""),
+           "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
+           "batch": batch, "route": kfa.route(dtype, hd),
+           "grid": f"{-(-sq // 64)}x{h}x{batch}={-(-sq // 64) * h * batch}"}
     if not timed:
         return row
     qp = torch.arange(sq)[:, None]
@@ -283,10 +402,11 @@ def flash_case(ops, ref, case, dtype, gen, timed):
     nbytes = (2 * sq * h * hd + 2 * skv * kvh * hd) * isz
     row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * pairs * h * hd,
                                              PEAK_FLOPS[dtype])
-    row["ms"] = median_ms(
-        lambda q, k, v: ops.flash_attention(q, k, v, causal, window), sets)
-    row["plain_ms"] = median_ms(
-        lambda q, k, v: ref.flash_attention(q, k, v, causal, window), sets)
+    kernel = lambda q, k, v: ops.flash_attention(q, k, v, causal, window)
+    row["ms"] = graph_ms(kernel, sets)
+    row["plain_ms"] = graph_ms(
+        lambda q, k, v: ref.flash_attention(q, k, v, causal, window), sets,
+        reps=5, per_rep=4)
     lib_mask = None if (causal and not window and sq == skv) \
         else mask.to(dev)
 
@@ -294,7 +414,10 @@ def flash_case(ops, ref, case, dtype, gen, timed):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=lib_mask, is_causal=lib_mask is None, enable_gqa=True)
-    row["library_ms"] = median_ms(library, sets)
+    row["library_ms"] = graph_ms(library, sets)
+    row["launched_ms"] = median_ms(kernel, sets)
+    row["library_launched_ms"] = median_ms(library, sets)
+    row["host_us"] = host_us(kernel, sets[0])
     return row
 
 
@@ -307,13 +430,29 @@ def kernel_checks(ops, ref):
                 decode_case(ops, ref, case, dtype, gen, timed=i == 0))
         for i, case in enumerate(FLASH_CASES):
             rows["flash_attention"].append(
-                flash_case(ops, ref, case, dtype, gen, timed=i <= 1))
+                flash_case(ops, ref, case, dtype, gen, timed=i <= 2))
+    bf16 = torch.bfloat16
+    for case in decode_split_cases():
+        rows["decode_attention"].append(
+            decode_case(ops, ref, case, bf16, gen, timed=False))
+    for case in FLASH_BF16_CASES:
+        rows["flash_attention"].append(
+            flash_case(ops, ref, case, bf16, gen, timed=False))
+    for case in ((150, 150, 4, 2, 128, True, 0), (97, 130, 4, 4, 64, False, 40)):
+        rows["flash_attention"].append(
+            flash_case(ops, ref, case, bf16, gen, timed=False, misaligned=True))
     torch.cuda.synchronize()
     for name, rs in rows.items():
         for r in rs:
             log(f"  {name} {r['dtype']:8s} {r['case']}: " + ", ".join(
                 f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                 for k, v in r.items() if k not in ("case", "dtype")))
+    path = rows["decode_attention"][len(DECODE_CASES)]   # bf16, path shape
+    b, _, kvh, _, _, _ = DECODE_CASES[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if not b * kvh * path["splits"] > sms:
+        raise AssertionError(f"decode at the path's shape runs {path['grid']} "
+                             f"blocks, not more than the card's {sms} SMs")
     return rows
 
 
@@ -336,9 +475,11 @@ def plain_attention(ops, ref):
 @contextmanager
 def checked_attention(ops, ref, worst):
     """Run the model's attention calls through the kernels and also through
-    the plain version in f32 and in f64 on the same activations. `worst`
-    collects, per kernel, the largest max|x - y| / max|f64| over the calls
-    for x, y = kernel and plain, kernel and f64, plain and f64."""
+    the plain version in the model's dtype and in f64 on the same
+    activations. `worst` collects, per kernel, the largest max|x - y| /
+    max|f64| over the calls for x, y = kernel and plain, kernel and f64,
+    plain and f64, and how many output elements lay outside phase 3's
+    band |kernel - plain| <= TOL (1 + |plain|) (f32 or bf16)."""
     saved = ops.decode_attention, ops.flash_attention
 
     def wide(a):
@@ -353,6 +494,10 @@ def checked_attention(ops, ref, worst):
             scale = exact.abs().max()
             w = worst.setdefault(name, dict.fromkeys(
                 ("kernel-plain", "kernel-f64", "plain-f64"), 0.0))
+            band = TOL[(name, got.dtype)] * (1 + want.double().abs())
+            w["outside band"] = w.get("outside band", 0) + int(
+                ((got.double() - want.double()).abs() > band).sum())
+            w["elements"] = w.get("elements", 0) + got.numel()
             for key, x, y in (("kernel-plain", got, want),
                               ("kernel-f64", got, exact),
                               ("plain-f64", want, exact)):
@@ -370,13 +515,43 @@ def checked_attention(ops, ref, worst):
         ops.decode_attention, ops.flash_attention = saved
 
 
+def greedy_run(cfg, params, prompt, max_len, steps=8, forced=None):
+    """Prefill `prompt` (1, S), then `steps` greedy decode steps (or steps
+    on the `forced` tokens). Returns the tokens and the logits of every
+    step, (steps + 1, vocab) in f64."""
+    from repro_torch.models import forward, init_cache
+    cache = init_cache(cfg, 1, max_len, "cuda")
+    logits, cache, _ = forward(params, cfg, tokens=prompt, cache=cache)
+    outs, toks = [logits[:, -1]], []
+    for i in range(steps):
+        tok = outs[-1].argmax(-1) if forced is None else torch.tensor(
+            [forced[i]], device="cuda")
+        toks.append(int(tok))
+        logits, cache, _ = forward(params, cfg, tokens=tok[:, None],
+                                   cache=cache)
+        outs.append(logits[:, -1])
+    return toks, torch.stack(outs)[..., :cfg.vocab_size].double()
+
+
+def rel(a, b) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def log_worst(worst, limit):
+    for name, w in worst.items():
+        log(f"  {name} calls, worst max |x - y| / max |f64|: "
+            + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                        for k, v in w.items()) + limit)
+
+
 def full_width_check(ops, ref):
     """Prefill + 8 greedy decode steps through the kernels (each call held
     to its plain version), through the plain versions, and (teacher-forced
     on the kernels' tokens) through the plain versions in f64 with f64
     weights."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import forward, init_cache, init_params, tree_map
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import init_params, tree_map
 
     cfg = dataclasses.replace(get_arch("granite-3-8b"), n_layers=4,
                               dtype="float32")
@@ -386,35 +561,24 @@ def full_width_check(ops, ref):
     prompt = prompt.to("cuda")
 
     def run(cfg, params, forced=None):
-        cache = init_cache(cfg, 1, 512, "cuda")
-        logits, cache, _ = forward(params, cfg, tokens=prompt, cache=cache)
-        outs, toks = [logits[:, -1]], []
-        for i in range(8):
-            tok = outs[-1].argmax(-1) if forced is None else torch.tensor(
-                [forced[i]], device="cuda")
-            toks.append(int(tok))
-            logits, cache, _ = forward(params, cfg, tokens=tok[:, None],
-                                       cache=cache)
-            outs.append(logits[:, -1])
-        return toks, torch.stack(outs)[..., :cfg.vocab_size].double()
-
-    def rel(a, b):
-        return float((a - b).abs().max() / b.abs().max())
+        return greedy_run(cfg, params, prompt, 512, forced=forced)
 
     worst = {}
+    kfa.ROUTE_LAUNCHES.update(dict.fromkeys(kfa.ROUTES, 0))
     with torch.no_grad():
         with checked_attention(ops, ref, worst):
             toks_k, lg_k = run(cfg, params)
+        if kfa.ROUTE_LAUNCHES["tensor_core"] or \
+                not kfa.ROUTE_LAUNCHES["cuda_core"]:
+            raise AssertionError(f"full-width f32: flash routes "
+                                 f"{kfa.ROUTE_LAUNCHES}, want CUDA cores only")
         with plain_attention(ops, ref):
             toks_p, lg_p = run(cfg, params)
             params = tree_map(lambda t: t.double(), params)
             _, lg_64 = run(dataclasses.replace(cfg, dtype="float64"), params,
                            forced=toks_k)
     err_k, err_p = rel(lg_k, lg_64), rel(lg_p, lg_64)
-    for name, w in worst.items():
-        log(f"  {name} calls, worst max |x - y| / max |f64|: "
-            + ", ".join(f"{k} {v:.3g}" for k, v in w.items())
-            + f" (kernel-f64 limit: {CALL_TOL} or plain-f64)")
+    log_worst(worst, f" (kernel-f64 limit: {CALL_TOL} or plain-f64)")
     log(f"  tokens kernels {toks_k}")
     log(f"  tokens plain   {toks_p}")
     log(f"  logits max rel diff: kernels vs plain {rel(lg_k, lg_p):.3g}; "
@@ -436,41 +600,138 @@ def full_width_check(ops, ref):
                              f"from f64, the plain path's {err_p:.3g}")
 
 
+def full_width_bf16_check(ops, ref):
+    """granite-3-8b as phase 5 serves it (40 layers, bf16, the same random
+    weights): prefill of one BF16_PROMPT-token prompt and 8 greedy decode
+    steps through the kernels, every attention call run through the plain
+    version in bf16 and in f64 on the model's own activations, whose
+    scores are in the hundreds, far from phase 3's random ones. As the f32
+    check does, per kernel the worst max |kernel - f64| / max |f64| over
+    the calls must be within TOL, or no larger than the plain bf16
+    version's worst plus CALL_TOL (the f32 allowance for these scores).
+    Phase 3's element-wise band is only logged here: on these activations
+    the plain version itself leaves decode's band of f64, where an output
+    in the tens lies near a bf16 rounding midpoint and kernel and plain
+    version round it an ulp (0.0625-0.25) apart (measured on the H100, for
+    the PR 13 kernels too). Then the prompt's first-token logits through
+    the plain versions in bf16 and in f32 (f32 weights): how far each bf16
+    path lies from f32 is logged, not bounded, since random weights at 40
+    layers amplify any rounding."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import init_params, tree_map
+
+    cfg = get_arch("granite-3-8b")
+    params = init_params(SEED, cfg, "cuda")
+    gen = torch.Generator().manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (1, BF16_PROMPT), generator=gen)
+    prompt = prompt.to("cuda")
+    max_len = BF16_PROMPT + 24
+
+    worst = {}
+    kfa.ROUTE_LAUNCHES.update(dict.fromkeys(kfa.ROUTES, 0))
+    with torch.no_grad():
+        with checked_attention(ops, ref, worst):
+            toks_k, lg_k = greedy_run(cfg, params, prompt, max_len)
+        routes = dict(kfa.ROUTE_LAUNCHES)
+        with plain_attention(ops, ref):
+            _, lg_p = greedy_run(cfg, params, prompt, max_len, steps=0)
+            params = tree_map(lambda t: t.float(), params)
+            _, lg_32 = greedy_run(dataclasses.replace(cfg, dtype="float32"),
+                                  params, prompt, max_len, steps=0)
+    del params
+    log_worst(worst, f" (kernel-f64 limit: TOL or plain-f64 + {CALL_TOL})")
+    first = lg_k[0]
+    log(f"  tokens kernels {toks_k}")
+    log(f"  first-token logits max rel diff vs f32: kernels "
+        f"{rel(first, lg_32[0]):.4g}, plain bf16 {rel(lg_p[0], lg_32[0]):.4g}"
+        f"; kernels vs plain bf16 {rel(first, lg_p[0]):.4g}; argmax kernels "
+        f"{int(first.argmax())}, plain bf16 {int(lg_p[0].argmax())}, f32 "
+        f"{int(lg_32[0].argmax())}")
+    want_routes = {"cuda_core": 0, "tensor_core": cfg.n_layers}
+    if routes != want_routes:
+        raise AssertionError(f"full-width bf16: flash routes {routes}, want "
+                             f"{want_routes}")
+    if sorted(worst) != ["decode_attention", "flash_attention"]:
+        raise AssertionError(f"full-width bf16: attention calls seen {worst}")
+    for name, w in worst.items():
+        limit = max(TOL[(name, torch.bfloat16)], w["plain-f64"] + CALL_TOL)
+        if not w["kernel-f64"] <= limit:
+            raise AssertionError(f"full-width bf16: {name} kernel is "
+                                 f"{w['kernel-f64']:.3g} of the output's "
+                                 f"scale from f64, the plain version "
+                                 f"{w['plain-f64']:.3g} (limit {limit:.3g})")
+    if not torch.isfinite(lg_k).all():
+        raise AssertionError("full-width bf16: kernel logits not finite")
+
+
 # --------------------------------------------------------------------- #
 # phase 5: the main path
 # --------------------------------------------------------------------- #
 
-def main_path(kernels):
+def serve_workload():
+    """Phase 5's workload: granite-3-8b at full width and depth, random
+    weights from SEED, a ServeEngine of 4 slots x 2048 tokens, and 8 seeded
+    requests with prompts of 64-1500 tokens and 32 new tokens each.
+    Returns (cfg, params, engine, requests)."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import init_params, tree_map
+    from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
 
     cfg = get_arch("granite-3-8b")
     assert cfg.n_layers == SERVE_LAYERS
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     params = init_params(SEED, cfg, "cuda")
-    torch.cuda.synchronize()
-    leaves = []
-    tree_map(leaves.append, params)
-    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
-    log(f"  init_params {time.perf_counter() - t0:.2f}s: "
-        f"{sum(t.numel() for t in leaves)} parameters, {weight_bytes} bytes")
-
     engine = ServeEngine(cfg, params, batch_slots=4, max_len=2048,
                          seed=SEED, device="cuda")
     gen = torch.Generator().manual_seed(SEED + 1)
     lens = torch.randint(64, 1501, (8,), generator=gen).tolist()
     reqs = [Request(i, torch.randint(0, cfg.vocab_size, (n,), generator=gen),
                     32) for i, n in enumerate(lens)]
+    return cfg, params, engine, reqs
 
-    for k in kernels.values():
-        k.launches = 0
+
+def serve(engine, reqs):
+    """Serve `reqs` on `engine`. Returns the finished requests by id and
+    the serving metrics: wall s, prefill ms per admission, decode ms/step,
+    decode tokens/s, TTFT ms per request (host clock from the start of
+    the serve), the first 8 tokens of each request."""
     t0 = time.perf_counter()
     done = engine.serve(reqs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    done = sorted(done, key=lambda r: r.rid)
+    decode_tokens = sum(len(r.out_tokens) - 1 for r in done)
+    return done, {
+        "wall_s": wall,
+        "prefill_ms": engine.prefill_s / engine.n_prefills * 1e3,
+        "decode_ms_per_step": engine.decode_s * 1e3 / engine.n_decode_steps,
+        "decode_tokens_per_s": decode_tokens / engine.decode_s,
+        "ttft_ms": [(r.first_token_at - t0) * 1e3 for r in done],
+        "tokens": [r.out_tokens[:8] for r in done]}
+
+
+def main_path(kernels):
+    """Phase 5. Returns the serving metrics of `serve` and the launches of
+    every kernel in the run."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import tree_map
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, engine, reqs = serve_workload()
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"  init_params and engine {time.perf_counter() - t0:.2f}s: "
+        f"{sum(t.numel() for t in leaves)} parameters, {weight_bytes} bytes")
+
+    for k in kernels.values():
+        k.launches = 0
+    kfa.ROUTE_LAUNCHES.update(dict.fromkeys(kfa.ROUTES, 0))
+    done, metrics = serve(engine, reqs)
     launches = {name: k.launches for name, k in kernels.items()}
+    routes = dict(kfa.ROUTE_LAUNCHES)
 
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
@@ -486,21 +747,24 @@ def main_path(kernels):
         f"decode steps, {engine.n_prefills} admissions)")
     if launches != want or engine.n_prefills != len(reqs):
         raise AssertionError("launch counts do not match the path")
+    want_routes = {"tensor_core": want["flash_attention"], "cuda_core": 0}
+    log(f"  flash_attention launches by route {routes}, expected "
+        f"{want_routes}")
+    if routes != want_routes:
+        raise AssertionError("bf16 prefill did not take the tensor-core route")
 
-    decode_tokens = sum(len(r.out_tokens) - 1 for r in done)
-    for r in sorted(done, key=lambda r: r.rid):
-        log(f"  req {r.rid}: prompt {len(r.prompt)}, TTFT "
-            f"{(r.first_token_at - t0) * 1e3:.1f} ms, tokens "
-            f"{r.out_tokens[:8]}...")
-    log(f"  serve wall {wall:.3f}s; prefill {engine.prefill_s:.3f}s over "
-        f"{engine.n_prefills} admissions "
-        f"({engine.prefill_s / engine.n_prefills * 1e3:.1f} ms each); decode "
-        f"{engine.decode_s * 1e3 / engine.n_decode_steps:.2f} ms/step over "
+    for r, ttft, toks in zip(done, metrics["ttft_ms"], metrics["tokens"]):
+        log(f"  req {r.rid}: prompt {len(r.prompt)}, TTFT {ttft:.1f} ms, "
+            f"tokens {toks}...")
+    log(f"  serve wall {metrics['wall_s']:.3f}s; prefill "
+        f"{engine.prefill_s:.3f}s over {engine.n_prefills} admissions "
+        f"({metrics['prefill_ms']:.1f} ms each); decode "
+        f"{metrics['decode_ms_per_step']:.2f} ms/step over "
         f"{engine.n_decode_steps} steps, "
-        f"{decode_tokens / engine.decode_s:.1f} decode tokens/s")
+        f"{metrics['decode_tokens_per_s']:.1f} decode tokens/s")
     log(f"  weight bytes {weight_bytes}, max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()}")
-    return launches
+    return dict(metrics, launches=launches)
 
 
 # --------------------------------------------------------------------- #
@@ -521,15 +785,8 @@ def stream_sass_counts(_build) -> dict:
     """Per element of the k = 128 instances of csrc/microbench.cu (4
     elements per thread and step): the predicated integer adds of the int32
     chain, by opcode, all integer adds, and the f32 adds."""
-    lib = _build.build_dir() / "libmicrobench.so"
-    sass = subprocess.run([find_cuobjdump(_build.find_nvcc()), "-sass",
-                           str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    funcs = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name, body = chunk.split("\n", 1)
-        funcs[name.strip()] = re.findall(
-            r"^\s*/\*[0-9a-f]{4,}\*/\s*([^;]+?)\s*;", body, re.M)
+    funcs = sass_functions(_build.build_dir() / "libmicrobench.so",
+                           _build.find_nvcc())
 
     def only(tag):
         hits = [n for n in funcs if tag in n]
@@ -537,10 +794,6 @@ def stream_sass_counts(_build) -> dict:
             raise AssertionError(f"SASS: want one function matching {tag}, "
                                  f"got {hits}")
         return funcs[hits[0]]
-
-    def opcode(ins):
-        words = ins.split()
-        return words[1] if words[0].startswith("@") else words[0]
 
     # integer adds: IADD3 (INT32 pipe), and VIADD / IMAD.IADD, which
     # ptxas may issue to balance the adds over two pipes
@@ -559,6 +812,71 @@ def stream_sass_counts(_build) -> dict:
         "f32_adds_per_elem": sum(opcode(i).startswith("FADD")
                                  for i in only("stream_f32ILi128E")) / 4,
     }
+
+
+def sass_functions(lib: Path, nvcc: str) -> dict:
+    """Mangled function name -> its SASS instructions, from cuobjdump."""
+    sass = subprocess.run([find_cuobjdump(nvcc), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name, body = chunk.split("\n", 1)
+        funcs[name.strip()] = re.findall(
+            r"^\s*/\*[0-9a-f]{4,}\*/\s*([^;]+?)\s*;", body, re.M)
+    return funcs
+
+
+def opcode(ins: str) -> str:
+    """The opcode of one SASS instruction, past its predicate."""
+    words = ins.split()
+    return words[1] if words[0].startswith("@") else words[0]
+
+
+def kernel_label(mangled: str) -> str:
+    """`flash_mma_kernel<128>` for a mangled kernel name of csrc/."""
+    m = re.search(r"([A-Za-z][A-Za-z_]*?_kernel)I(.+?)EEv", mangled)
+    if not m:
+        return mangled
+    args, rest = [], m.group(2)
+    while rest:
+        n = re.match(r"Li(\d+)E", rest)
+        if rest.startswith("13__nv_bfloat16"):
+            args.append("bf16")
+            rest = rest[len("13__nv_bfloat16"):]
+        elif rest.startswith("f"):
+            args.append("f32")
+            rest = rest[1:]
+        elif n:
+            args.append(n.group(1))
+            rest = rest[n.end():]
+        else:
+            args.append(rest)
+            break
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def ptxas_per_kernel(log_text: str) -> list[tuple[str, int, int]]:
+    """(kernel, registers, spill-store bytes) from one source's ptxas -v."""
+    out = []
+    for chunk in log_text.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores", chunk)
+        out.append((kernel_label(name), int(regs.group(1)) if regs else -1,
+                    int(spill.group(1)) if spill else -1))
+    return out
+
+
+def hmma_counts(_build) -> dict:
+    """HMMA instructions in the SASS of each tensor-core flash kernel."""
+    funcs = sass_functions(_build.build_dir() / "libflash_attention.so",
+                           _build.find_nvcc())
+    counts = {kernel_label(n): sum(opcode(i).startswith("HMMA") for i in body)
+              for n, body in funcs.items() if "flash_mma_kernel" in n}
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"tensor-core flash kernels without HMMA "
+                             f"instructions in their SASS: {counts}")
+    return counts
 
 
 def int32_add_rate(sass) -> tuple[float, str]:
@@ -1101,6 +1419,12 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
             f"-{max(regs, default=0)}, spill stores up to "
             f"{max(spills, default=0)} bytes")
+    for src in ("flash_attention.cu", "decode_attention.cu"):
+        for label, regs, spill in ptxas_per_kernel(_build.BUILD_LOG.get(src, "")):
+            log(f"    {src} {label}: {regs} registers, {spill} bytes spill "
+                f"stores")
+    hmma = hmma_counts(_build)
+    log(f"  HMMA instructions in the tensor-core flash kernels' SASS: {hmma}")
     sass = stream_sass_counts(_build)
     log(f"  stream_ops k=128 SASS, per element: "
         f"{sass['chain_adds_per_elem']:g} predicated integer adds "
@@ -1118,10 +1442,14 @@ def main() -> int:
     log("phase 4: granite-3-8b full width, 4 layers, f32: kernels vs plain")
     full_width_check(ops, ref)
     torch.cuda.empty_cache()
+    log(f"phase 4: granite-3-8b, 40 layers, bf16, {BF16_PROMPT}-token prompt: "
+        f"every attention call vs plain")
+    full_width_bf16_check(ops, ref)
+    torch.cuda.empty_cache()
 
     log("phase 5: main path: granite-3-8b, 40 layers, bf16, ServeEngine")
     kernels = ops.kernels()
-    launches = main_path(kernels)
+    launches = main_path(kernels)["launches"]
     torch.cuda.empty_cache()
 
     log("phase 6: streaming kernels at the paper's sizes, through ops")

@@ -14,23 +14,55 @@
 // 2 * S^2 * hd flops per head against 4 * S * hd bytes of q/k/v/out, far
 // above the ~295 flops/byte ridge, so the limit is arithmetic.
 //
-// Design: one block of 256 threads per (64-query tile, head, batch). The
-// query tile and each 64-key K/V tile are staged in shared memory as f32
-// (rows padded by one word against bank conflicts); each thread computes a
-// 4x4 block of scores and holds 4 output rows x hd/16 columns in registers,
-// with the online softmax (m, l) in f32 per row. Key tiles that are wholly
-// causally dead or outside the window are never loaded. Query tiles run
-// latest first, so the longest causal rows start first. The arithmetic runs
-// on CUDA cores in f32; mma.sync/wgmma tensor-core tiles are later work.
-// A query row with no unmasked key (window > 0 and q_pos >= Skv + window - 1,
-// causal or not) gets what the plain version gives it: every score is
-// -1e30, the softmax is uniform, so the row is the f32 mean of V over keys
-// [0, Skv), cast to q's type. The main kernel skips those rows (and whole
-// query tiles of them), and a second small kernel, launched only when such
-// rows exist, writes them; the normal path is unchanged.
+// Two routes, chosen by the caller (kernels/flash_attention.py, route())
+// from the dtype and head_dim alone; neither is ever taken because the
+// other failed.
+//
+// Tensor cores (route 1: bf16, hd a multiple of 16 up to 256),
+// flash_mma_kernel: FlashAttention-2 on mma.sync.m16n8k16 (bf16 in, f32
+// accumulators). One block of 4 warps per (64-query tile, head, batch),
+// each warp owning 16 query rows. The query tile and 64-key K/V tiles sit
+// in shared memory as bf16, rows padded by 16 bytes so that ldmatrix reads
+// are free of bank conflicts; K/V tiles arrive through 16-byte cp.async
+// copies, double-buffered (tile j + 1 loads while tile j computes), or,
+// where a base pointer or stride is not 16-byte aligned, through 2-byte
+// loads. For hd <= 128 the warp's Q fragments stay in registers for the
+// whole block (above hd 128 they are re-read from shared memory, leaving
+// registers for the up to 128 f32 output accumulators a thread holds). Per key
+// tile: S = Q.K^T on the tensor cores; S * log2(e) / sqrt(hd) in f32 (the
+// scale never touches the bf16 inputs); causal, window and key < Skv masks
+// on the accumulator fragment (tiles wholly inside the masks skip them);
+// online softmax (m, l) in f32, base 2, row max over the 4 lanes of a quad;
+// P split in registers into bf16(P) and bf16(P - bf16(P)), both fed
+// straight back as A operands of O += P.V, whose B operand comes from
+// ldmatrix.trans of the V tile. P in bf16 alone (8 significant bits) would
+// move outputs by up to 2^-9 of max |V| where V rows of opposite sign
+// cancel, which on granite-3-8b's own activations (scores in the hundreds,
+// |V| in the tens) leaves chip_smoke.py's bf16 band of 1e-2 (1 + |out|);
+// the second product keeps P to about 16 bits. The f32 output is
+// normalised by 1 / l and stored as bf16.
+//
+// CUDA cores (route 0: f32, and bf16 with other head dims), flash_kernel:
+// one block of 256 threads per (64-query tile, head, batch). The query tile
+// and each 64-key K/V tile are staged in shared memory as f32 (rows padded
+// by one word against bank conflicts); each thread computes a 4x4 block of
+// scores and holds 4 output rows x hd/16 columns in registers, with the
+// online softmax (m, l) in f32 per row, all in f32 on CUDA cores: phase 4
+// of chip_smoke.py holds every f32 call within 1e-4 of an f64 run, which
+// TF32 tensor cores cannot.
+//
+// Both: key tiles that are wholly causally dead or outside the window are
+// never loaded, and query tiles run latest first, so the longest causal
+// rows start first. A query row with no unmasked key (window > 0 and
+// q_pos >= Skv + window - 1, causal or not) gets what the plain version
+// gives it: every score is -1e30, the softmax is uniform, so the row is the
+// f32 mean of V over keys [0, Skv), cast to q's type. The main kernels skip
+// those rows (and whole query tiles of them), and a second small kernel,
+// launched only when such rows exist, writes them.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -219,6 +251,336 @@ __global__ void empty_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
   }
 }
 
+// ------------------------------------------------------------------------
+// Tensor-core route (bf16)
+// ------------------------------------------------------------------------
+
+constexpr int kMmaThreads = 128;   // 4 warps x 16 query rows
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(smem)), "l"(gmem), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(smem_u32(p)));
+}
+// d += a (16x16, row major) * b (16x8, column major); bf16 in, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// two floats x0, x1 (x0 in the low half, the lower column index) as
+// bf16x2, `hi`, and the bf16x2 of what that rounding left, `lo`: hi + lo
+// holds each to about 16 significant bits, where hi alone holds 8
+__device__ __forceinline__ void split_bf16(float x0, float x1, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+// Rows [row0, row0 + 64) of one head of a position-strided bf16 array
+// into a 64 x (HD + 8) shared tile; rows at or past n are zero. vec:
+// 16-byte cp.async (every address 16-byte aligned); else 2-byte loads,
+// stored 16 bytes at a time. Above hd 128 the loop stays rolled, so that
+// the compiler keeps no per-piece addresses live across the key loop.
+template <int HD>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long ss, int row0, int n,
+                                          bool vec) {
+  constexpr int kPieces = HD / 8;            // 16-byte pieces a row
+  constexpr int kLd = HD + 8;
+  constexpr int kUnroll = HD > 128 ? 1 : 64 * kPieces / kMmaThreads;
+#pragma unroll kUnroll
+  for (int u = 0; u < 64 * kPieces / kMmaThreads; ++u) {
+    const int i = threadIdx.x + u * kMmaThreads;
+    const int r = i / kPieces, c = i % kPieces;
+    const int pos = row0 + r;
+    const bool ok = pos < n;
+    __nv_bfloat16* d = dst + r * kLd + c * 8;
+    const __nv_bfloat16* s = src + (long long)(ok ? pos : 0) * ss + c * 8;
+    if (vec) {
+      cp_async16(d, s, ok ? 16 : 0);
+    } else {
+      union {
+        uint4 u;
+        __nv_bfloat16 h[8];
+      } piece;
+      piece.u = make_uint4(0u, 0u, 0u, 0u);
+      if (ok)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) piece.h[e] = s[e];
+      *reinterpret_cast<uint4*>(d) = piece.u;
+    }
+  }
+}
+
+constexpr size_t mma_smem_bytes(int hd) {
+  // Q tile, then two stages of K and of V, rows of hd + 8 bf16
+  return sizeof(__nv_bfloat16) * (size_t)(BQ + 4 * BK) * (hd + 8);
+}
+
+// HD: the head dim, a multiple of 16. scale_log2 = log2(e) / sqrt(HD).
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                 int KVH, Strides qs, Strides ks, Strides vs, int causal,
+                 int window, float scale_log2, int vec) {
+  constexpr int KS = HD / 16;             // 16-wide steps over hd
+  constexpr int DN = HD / 8;              // 8-wide output column tiles
+  constexpr int kLd = HD + 8;             // 16 bytes of padding a row
+  constexpr bool kQInRegs = HD <= 128;
+  constexpr int kSUnroll = kQInRegs ? KS : 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sK = sQ + BQ * kLd;      // 2 stages x BK x kLd
+  __nv_bfloat16* sV = sK + 2 * BK * kLd;  // 2 stages x BK x kLd
+
+  const int qt = gridDim.x - 1 - blockIdx.x;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kh = h / (H / KVH);
+  const int q_lo = qt * BQ;
+  // rows from q_empty on have no unmasked key: empty_rows_kernel writes them
+  const long long q_empty = window > 0 ? (long long)Skv + window - 1 : Sq;
+  if (q_lo >= q_empty) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;   // fragment row group, lane in quad
+
+  const __nv_bfloat16* qb = q + b * qs.b + h * qs.h;
+  const __nv_bfloat16* kb = k + b * ks.b + kh * ks.h;
+  const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
+
+  int kt_end = (Skv + BK - 1) / BK;
+  if (causal) kt_end = min(kt_end, (q_lo + BQ - 1) / BK + 1);
+  int kt_begin = 0;
+  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / BK;
+
+  load_rows<HD>(sQ, qb, qs.s, q_lo, Sq, vec);
+  load_rows<HD>(sK, kb, ks.s, kt_begin * BK, Skv, vec);
+  load_rows<HD>(sV, vb, vs.s, kt_begin * BK, Skv, vec);
+  cp_async_commit();
+
+  // this warp's 16 query rows: row0 holds fragment rows 0-7, row1 8-15
+  const int wq_lo = q_lo + warp * 16, wq_hi = wq_lo + 15;
+  const int row0 = wq_lo + gq, row1 = row0 + 8;
+  // per-lane ldmatrix offsets (elements) into Q, K and V tiles
+  const int q_off = (warp * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
+  const int k_off = ((lane & 7) + (lane >> 4) * 8) * kLd + ((lane >> 3) & 1) * 8;
+  const int v_off = (lane & 15) * kLd + (lane >> 4) * 8;
+  unsigned qf[kQInRegs ? KS : 1][4];
+  float acc[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[dn][e] = 0.f;
+  // running max of the raw scores, and the running sum, per fragment row
+  float m_r[2] = {-1e30f, -1e30f}, l_r[2] = {0.f, 0.f};
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    cp_async_wait<0>();
+    // tile kt is in shared memory for every thread, and every warp is done
+    // with tile kt - 1, whose stage the next loads refill
+    __syncthreads();
+    if (kt + 1 < kt_end) {
+      load_rows<HD>(sK + (buf ^ 1) * BK * kLd, kb, ks.s, (kt + 1) * BK, Skv, vec);
+      load_rows<HD>(sV + (buf ^ 1) * BK * kLd, vb, vs.s, (kt + 1) * BK, Skv, vec);
+      cp_async_commit();
+    }
+    if (kQInRegs && kt == kt_begin) {
+#pragma unroll
+      for (int s = 0; s < KS; ++s) ldmatrix_x4(qf[kQInRegs ? s : 0], sQ + q_off + s * 16);
+    }
+    const int k_lo = kt * BK;
+    // a warp whose 16 rows see no key of this tile skips it
+    const bool live = !(causal && wq_hi < k_lo) &&
+                      !(window > 0 && wq_lo - (k_lo + BK - 1) >= window);
+    if (!live) continue;
+    const __nv_bfloat16* sKt = sK + buf * BK * kLd;
+    const __nv_bfloat16* sVt = sV + buf * BK * kLd;
+
+    // S = Q.K^T: 8 tiles of 16 rows x 8 keys
+    float sc[8][4];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
+    // above hd 128 Q comes from shared memory and the step loop stays
+    // rolled in pairs, which keeps the registers for the 128 f32 output
+    // accumulators a thread holds at hd 256
+#pragma unroll kSUnroll
+    for (int s = 0; s < KS; ++s) {
+      unsigned a[4];
+      if (kQInRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[e] = qf[kQInRegs ? s : 0][e];
+      } else {
+        ldmatrix_x4(a, sQ + q_off + s * 16);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {   // keys 16j .. 16j + 15
+        unsigned kf[4];
+        ldmatrix_x4(kf, sKt + k_off + j * 16 * kLd + s * 16);
+        mma_bf16(sc[2 * j], a, kf[0], kf[1]);
+        mma_bf16(sc[2 * j + 1], a, kf[2], kf[3]);
+      }
+    }
+
+    // mask on the fragment where the tile crosses an edge: masked raw
+    // scores are -inf; m starts at -1e30, so exp2 gives them 0
+    const bool edge = k_lo + BK > Skv || (causal && k_lo + BK - 1 > wq_lo) ||
+                      (window > 0 && wq_hi - k_lo >= window);
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (edge) {
+          const int row = e < 2 ? row0 : row1;
+          const int key = k_lo + nt * 8 + 2 * tq + (e & 1);
+          const bool ok = key < Skv && (!causal || row >= key) &&
+                          (window <= 0 || row - key < window);
+          if (!ok) sc[nt][e] = __int_as_float(0xff800000);   // -inf
+        }
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      }
+    }
+    // softmax in base 2: p = exp2(s * scale_log2 - m * scale_log2), the
+    // scale applied in f32 inside one FFMA
+    float alpha[2], m_scaled[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      alpha[i] = exp2f((m_r[i] - mx[i]) * scale_log2);
+      m_r[i] = mx[i];
+      m_scaled[i] = mx[i] * scale_log2;
+      l_r[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      acc[dn][0] *= alpha[0];
+      acc[dn][1] *= alpha[0];
+      acc[dn][2] *= alpha[1];
+      acc[dn][3] *= alpha[1];
+    }
+
+    // O += P.V, 16 keys at a time: P's fragments, split into a bf16 part
+    // and the bf16 of its rounding error, are the A operands of two MMAs
+    // into the same accumulators; V's come from ldmatrix.trans
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      float p[2][4];
+#pragma unroll
+      for (int t = 0; t < 2; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[t][e] = exp2f(fmaf(sc[2 * kc + t][e], scale_log2, -m_scaled[e >> 1]));
+          l_r[e >> 1] += p[t][e];
+        }
+      unsigned a[4], r[4];
+      split_bf16(p[0][0], p[0][1], a[0], r[0]);
+      split_bf16(p[0][2], p[0][3], a[1], r[1]);
+      split_bf16(p[1][0], p[1][1], a[2], r[2]);
+      split_bf16(p[1][2], p[1][3], a[3], r[3]);
+#pragma unroll
+      for (int j = 0; j < DN / 2; ++j) {   // columns 16j .. 16j + 15
+        unsigned vf[4];
+        ldmatrix_x4_trans(vf, sVt + v_off + kc * 16 * kLd + j * 16);
+        mma_bf16(acc[2 * j], a, vf[0], vf[1]);
+        mma_bf16(acc[2 * j], r, vf[0], vf[1]);
+        mma_bf16(acc[2 * j + 1], a, vf[2], vf[3]);
+        mma_bf16(acc[2 * j + 1], r, vf[2], vf[3]);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+  }
+  const float inv[2] = {1.f / fmaxf(l_r[0], 1e-30f), 1.f / fmaxf(l_r[1], 1e-30f)};
+  const int rows[2] = {row0, row1};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= Sq || rows[i] >= q_empty) continue;
+    __nv_bfloat16* orow = o + (((size_t)b * Sq + rows[i]) * H + h) * HD;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<__nv_bfloat162*>(orow + dn * 8 + 2 * tq) =
+          __floats2bfloat162_rn(acc[dn][2 * i] * inv[i], acc[dn][2 * i + 1] * inv[i]);
+  }
+}
+
+template <int HD>
+int launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
+               const void* v, void* o, int Sq, int Skv, int H, int KVH,
+               Strides qs, Strides ks, Strides vs, int causal, int window,
+               int vec) {
+  constexpr size_t smem = mma_smem_bytes(HD);
+  static bool configured = false;
+  if (!configured) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e == cudaSuccess)   // as much shared memory as L1 allows: more blocks
+      e = cudaFuncSetAttribute(flash_mma_kernel<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = true;
+  }
+  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  flash_mma_kernel<HD><<<grid, kMmaThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
+      Skv, H, KVH, qs, ks, vs, causal, window, scale_log2, vec);
+  return 0;
+}
+
+// one instantiation per head dim: every offset is a constant
+template <int HD>
+int launch_mma_hd(int hd, dim3 grid, cudaStream_t st, const void* q,
+                  const void* k, const void* v, void* o, int Sq, int Skv,
+                  int H, int KVH, Strides qs, Strides ks, Strides vs,
+                  int causal, int window, int vec) {
+  if (hd == HD)
+    return launch_mma<HD>(grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, vec);
+  if constexpr (HD > 16)
+    return launch_mma_hd<HD - 16>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, vec);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ------------------------------------------------------------------------
+// CUDA-core route
+// ------------------------------------------------------------------------
+
 template <typename T, int HDM>
 int launch(dim3 grid, size_t smem, cudaStream_t st, const void* q,
            const void* k, const void* v, void* o, int Sq, int Skv, int H,
@@ -256,24 +618,37 @@ extern "C" const char* error_string(int code) {
 // q: (B, Sq, H, hd), k/v: (B, Skv, KVH, hd), each with unit stride on hd and
 // the given (batch, position, head) strides in elements; o: contiguous
 // (B, Sq, H, hd). window 0 = no window. is_bf16: 1 for bf16, 0 for f32.
+// route: 1 = tensor cores (bf16, hd % 16 == 0), 0 = CUDA cores; a route the
+// inputs do not fit is refused, never replaced by the other.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int B, int Sq, int Skv, int H, int KVH,
                                int hd, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
                                long long v_sh, int causal, int window,
-                               int is_bf16, void* stream) {
+                               int is_bf16, int route, void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH != 0 || hd < 1 ||
-      hd > 256 || H > 65535 || B > 65535)
+      hd > 256 || H > 65535 || B > 65535 || route < 0 || route > 1 ||
+      (route == 1 && (!is_bf16 || hd % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  const size_t smem = smem_bytes(hd);
-  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc = is_bf16
-      ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale)
-      : launch_hd<float>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
+  int rc;
+  if (route == 1) {
+    // 16-byte copies need every base pointer and stride 16-byte aligned
+    const long long strides[9] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+    int vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+               reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+    for (long long s : strides) vec = vec && s % 8 == 0;
+    rc = launch_mma_hd<256>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, vec);
+  } else {
+    const size_t smem = smem_bytes(hd);
+    const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+    rc = is_bf16
+        ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale)
+        : launch_hd<float>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
+  }
   if (rc != 0) return rc;
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);

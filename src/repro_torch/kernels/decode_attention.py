@@ -5,11 +5,18 @@ One decode step of GQA attention, q (B,H,hd) over a KV cache
 (B,W,KVH,hd), with a valid length per row. The plain version is
 `ref.decode_attention`; `ops.decode_attention` picks between them by the
 tensors' device.
+
+The kernel splits the W cache slots over `split_count(B, KVH, W)` blocks
+per (row, KV head) and merges their partial softmax states in a second
+launch; both launches are one call here and one count in `KERNEL`. The
+partial states go to a workspace kept per (device, stream), so that a
+call allocates only its output.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,17 +24,58 @@ from ._build import CudaKernel, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("decode_attention", "decode_attention",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P])
+                    [_P] * 6 + [_I] * 7 + [_P])
 MAX_GROUP = 16     # query heads per KV head
 MAX_HEAD_DIM = 256
+SM_COUNT = 132     # NVIDIA H100 SXM
+BLOCKS_PER_SM = 2  # the split rule's target: this many blocks for every SM
+MAX_CHUNK = 128    # slots a block walks at most: four of its 32-row tiles
+
+
+def split_count(b: int, kvh: int, w: int, sms: int = SM_COUNT) -> int:
+    """Chunks the W cache slots split into: the fewest that give
+    `b * kvh * splits >= BLOCKS_PER_SM * sms` blocks and chunks of at most
+    MAX_CHUNK slots, and at most `w` (a slot per split). A block walks its
+    chunk's tiles one after another, so the longest chunk sets the time.
+    From shapes alone: the lengths live on the card, and reading them would
+    cost a host sync."""
+    want = max(-(-BLOCKS_PER_SM * sms // (b * kvh)), -(-w // MAX_CHUNK))
+    return max(1, min(w, want))
+
+
+@functools.lru_cache(maxsize=None)
+def splits_for(b: int, kvh: int, w: int, device: int) -> int:
+    """`split_count` on the SM count of CUDA device number `device`, once
+    per shape: the decode step calls the kernel 40 times a step at one
+    shape."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return split_count(b, kvh, w, sms)
+
+
+_WORKSPACES: dict = {}   # (device index, stream) -> f32 workspace
+
+
+def workspace(n: int, device: torch.device, stream: int) -> torch.Tensor:
+    """An f32 workspace of at least `n` elements for the calls on `stream`.
+    Calls on one stream run in order, so they share it; it lives as long as
+    the process and is replaced by a larger one when a call needs more.
+    So a call allocates only its output: the decode step is host-bound,
+    and a fresh ~1 MB workspace per call (the path's shape) costs host
+    time (PERF.md)."""
+    key = (device.index, stream)
+    ws = _WORKSPACES.get(key)
+    if ws is None or ws.numel() < n:
+        ws = _WORKSPACES[key] = torch.empty(n, dtype=torch.float32,
+                                            device=device)
+    return ws
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
-    """Launch the kernel. q: (B,H,hd); k, v: (B,W,KVH,hd); lengths: int32
-    (B,) with 1 <= lengths[b] <= W (a documented precondition, not checked:
-    that would cost a host sync). All on one CUDA device, contiguous;
-    f32 or bf16. Returns (B,H,hd) in q's dtype."""
+    """Launch the kernel. q: (B,H,hd); k, v: (B,W,KVH,hd), 16-byte aligned;
+    lengths: int32 (B,) with 1 <= lengths[b] <= W (a documented
+    precondition, not checked: that would cost a host sync). All on one
+    CUDA device, contiguous; f32 or bf16. Returns (B,H,hd) in q's dtype."""
     tensors = (q, k, v, lengths)
     check_cuda("decode_attention", *tensors)
     b, h, hd = q.shape
@@ -40,9 +88,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lengths.dtype != torch.int32 or lengths.shape != (b,):
         raise ValueError(f"lengths must be int32 ({b},), got "
                          f"{lengths.dtype} {tuple(lengths.shape)}")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("decode_attention: k and v must start on a 16-byte "
+                         "boundary (the kernel copies 16-byte pieces)")
+    splits = splits_for(b, kvh, w, q.get_device())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    ws = workspace(b * h * splits * (hd + 2), q.device, stream)
     out = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), b, kvh, h // kvh, w, hd,
-                  int(q.dtype == torch.bfloat16),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+                  lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  b, kvh, h // kvh, w, hd, splits,
+                  int(q.dtype == torch.bfloat16), stream)
     return out

@@ -1,6 +1,6 @@
-"""The port stands alone: neither `repro_torch` nor chip_smoke.py imports
-JAX or anything of the reference package, and its entry points default to
-the card instead of falling back to the CPU."""
+"""The port stands alone: neither `repro_torch` nor chip_smoke.py and
+serve_pair.py import JAX or anything of the reference package, and its
+entry points default to the card instead of falling back to the CPU."""
 
 import ast
 import os
@@ -13,7 +13,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                      ROOT / "serve_pair.py"]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -23,7 +24,7 @@ def test_importing_the_port_loads_no_jax():
                for m in modules]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
-            "import chip_smoke\n"
+            "import chip_smoke, serve_pair\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
