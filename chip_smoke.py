@@ -8,8 +8,10 @@ Phases, each of which raises (exit code != 0) on failure:
 1. Device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 off for matmuls and cuDNN.
 2. Build: every `src/repro_torch/kernels/csrc/*.cu` with nvcc for sm_90a
-   (one nvcc each, in parallel), with registers and spills of each
-   attention kernel. Then `cuobjdump -sass` of the built stream_ops
+   (one nvcc each, in parallel), with registers, spills and static shared
+   memory of each attention, va and gemv kernel. The SASS of every ring
+   kernel of va and gemv (`csrc/bulk_ring.cuh`) must hold bulk copies
+   (UBLKCP: cp.async.bulk). Then `cuobjdump -sass` of the built stream_ops
    library counts the integer adds per element of its k = 128 instance,
    which must be at least 128 (no compiler folded the chain), and the
    pipes they use give the add rate of the bounds (SMs x lanes x
@@ -54,15 +56,23 @@ Phases, each of which raises (exit code != 0) on failure:
    (int32) and reduction (f32) at PrIM's n = 2^27, gemv at granite-3-8b's
    unembed and MLP-up shapes (bf16) and PrIM GEMV's (f32). Each output is
    held to its plain version (va bit-exact; reduction within rtol 1e-5 of
-   an f64 sum and bit-identical over two launches; gemv f32 within 1e-5 of
-   the output's scale of an f64 product, bf16 within one bf16 rounding of
-   the plain version), then timed beside its bound, its plain version and
-   one library call (torch.add, torch.sum, torch.mv). Then the H100's
-   Fig. 2 curve: stream_ops on 2^27 int32 at k = 1, 2, 4, ..., 128 (and
-   256, past the knee), each bit-exact against the plain version, with
-   Gop/s, GB/s and the bound of each point; past the knee the time must
-   grow with k. Edge cases (ragged tails, unaligned views, other dtypes,
-   other k) are checked at small sizes.
+   an f64 sum; gemv f32 within 1e-5 of the output's scale of an f64
+   product, bf16 within one bf16 rounding of the plain version beyond
+   that f32 band (`gemv_check`); va,
+   reduction and every gemv bit-identical over two launches). va and gemv
+   must have run on their ring routes; each call's route, grid and shared
+   memory are logged, and the other routes (va's stride kernel and bulk
+   stores, gemv's rows kernel) are held and timed on the same arrays.
+   Each kernel is timed beside its bound, its plain version and one
+   library call (torch.add, torch.sum, torch.mv): the kernel and the
+   library call by CUDA-graph replay (`ms`, `library_ms`: the card's
+   time) and launched from Python (`launched_ms`). Then the H100's Fig. 2
+   curve: stream_ops on 2^27 int32 at k = 1, 2, 4, ..., 128 (and 256,
+   past the knee), each bit-exact against the plain version, with Gop/s,
+   GB/s and the bound of each point; past the knee the time must grow
+   with k. Edge cases (ragged tails, unaligned views, n and M below one
+   ring stage, K beyond one stage, other dtypes, other k) are checked at
+   small sizes and must reach every route of va and gemv.
 7. The Fig. 2 entry point, `python -m repro_torch.benchmarks.run
    microbench` (its `main`, in process) on the card: it must pass, and the
    counters must show its sweep (k = 1, 4, 16) went through the stream_ops
@@ -82,7 +92,7 @@ Phases, each of which raises (exit code != 0) on failure:
    (m = n), m = 512, 8191 x 8193. Then each kernel is timed beside its
    bound, its plain version and one library call (torch.cumsum for the
    whole scan, the broadcast add, torch.histc, A.t().contiguous(); none
-   for ts).
+   for ts), by CUDA-graph replay and launched, as in phase 6.
 
 The second-to-last line is the `kernels` JSON; the last line is
 `{"ok": true, "device": {...}}`.
@@ -129,7 +139,9 @@ STREAM_ROW_K = 16           # the `kernels` line's stream_ops point
 GEMV_CASES = [(49280, 4096, torch.bfloat16, "granite-3-8b unembed"),
               (12800, 4096, torch.bfloat16, "granite-3-8b MLP up"),
               (8192, 2048, torch.float32, "PrIM GEMV")]
-GEMV_F32_TOL = 1e-5         # of max |f64 product|
+# of max |f64 product|: gemv f32's band against f64, and the band by which
+# two f32 sums of a bf16 row may differ before they round to bf16
+GEMV_F32_TOL = 1e-5
 # kernel vs plain version: |got - want| <= TOL * (1 + |want|). f32: the
 # band of tests/test_kernels.py (summation order only). bf16: a few times
 # the largest error measured on the H100 (decode 3.05e-5, prefill 3.9e-3),
@@ -267,6 +279,22 @@ def host_us(fn, args, n: int = 100) -> float:
     t1 = time.perf_counter()
     torch.cuda.synchronize()
     return (t1 - t0) / n * 1e6
+
+
+def card_times(kernel, plain, library, sets, plain_reps=7,
+               plain_per_rep=10) -> dict:
+    """`ms` and `library_ms` by graph replay (the card's time), and both
+    launched from Python one after another (`launched_ms`,
+    `library_launched_ms`: host time included); `plain_ms` launched (the
+    plain version is no yardstick of speed). `library` None: no call."""
+    out = {"ms": graph_ms(kernel, sets),
+           "launched_ms": median_ms(kernel, sets),
+           "plain_ms": median_ms(plain, sets, plain_reps, plain_per_rep),
+           "library_ms": None}
+    if library is not None:
+        out["library_ms"] = graph_ms(library, sets)
+        out["library_launched_ms"] = median_ms(library, sets)
+    return out
 
 
 def bound(nbytes: float, ops_: float, rate: float) -> tuple[float, str]:
@@ -849,22 +877,54 @@ def kernel_label(mangled: str) -> str:
         elif n:
             args.append(n.group(1))
             rest = rest[n.end():]
+        elif (sub := re.match(r"S\d*_", rest)):     # a repeated __nv_bfloat16
+            args.append("bf16")
+            rest = rest[sub.end():]
+        elif re.match(r"Lb[01]E", rest):
+            args.append("true" if rest[2] == "1" else "false")
+            rest = rest[4:]
+        elif (named := re.match(r"NS_(\d+)", rest)):   # a struct of csrc's
+            end = named.end() + int(named.group(1))
+            args.append(rest[named.end():end])
+            rest = rest[end:].removeprefix("E")
         else:
             args.append(rest)
             break
     return f"{m.group(1)}<{','.join(args)}>"
 
 
-def ptxas_per_kernel(log_text: str) -> list[tuple[str, int, int]]:
-    """(kernel, registers, spill-store bytes) from one source's ptxas -v."""
+def ptxas_per_kernel(log_text: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill-store bytes, static shared-memory bytes)
+    from one source's ptxas -v."""
     out = []
     for chunk in log_text.split("Compiling entry function '")[1:]:
         name = chunk.split("'", 1)[0]
         regs = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
         out.append((kernel_label(name), int(regs.group(1)) if regs else -1,
-                    int(spill.group(1)) if spill else -1))
+                    int(spill.group(1)) if spill else -1,
+                    int(smem.group(1)) if smem else 0))
     return out
+
+
+def bulk_copy_counts(_build) -> dict:
+    """Bulk-copy instructions (cp.async.bulk: UBLKCP and the other BLK
+    opcodes) in the SASS of every ring kernel of va and gemv, by opcode;
+    raises where a ring kernel has none."""
+    counts = {}
+    for stem in ("va", "gemv"):
+        funcs = sass_functions(_build.build_dir() / f"lib{stem}.so",
+                               _build.find_nvcc())
+        for name, body in funcs.items():
+            if "ring_kernel" in name:
+                ops_ = [opcode(i) for i in body if "BLK" in opcode(i)]
+                counts[kernel_label(name)] = {
+                    op: ops_.count(op) for op in sorted(set(ops_))}
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"ring kernels without bulk copies in their "
+                             f"SASS: {counts}")
+    return counts
 
 
 def hmma_counts(_build) -> dict:
@@ -899,18 +959,46 @@ def int32_add_rate(sass) -> tuple[float, str]:
 # phase 6: the streaming kernels at the paper's sizes
 # --------------------------------------------------------------------- #
 
-def within_bf16_rounding(got, want) -> bool:
-    """|got - want| at most one bf16 spacing at the larger magnitude."""
+def within_bf16_rounding(got, want, slack: float = 0.0) -> bool:
+    """|got - want| at most one bf16 spacing at the larger magnitude, plus
+    `slack`."""
     g, w = got.float(), want.float()
     big = torch.maximum(g.abs(), w.abs()).clamp_min(2.0 ** -126)
     spacing = torch.exp2(torch.floor(torch.log2(big)) - 7)
-    return bool(((g - w).abs() <= spacing).all())
+    return bool(((g - w).abs() <= spacing + slack).all())
+
+
+def gemv_check(what, A, x, got, want) -> float:
+    """Hold a gemv result to the f64 product (A f32: within GEMV_F32_TOL of
+    the output's scale) or to its plain version `want` (A bf16: within one
+    bf16 rounding of it, beyond the f32 band by which the two f32 sums,
+    taken in other orders, may differ before they are rounded: a row whose
+    exact value is near 0 after cancellation can round its two sums to bf16
+    values many of their spacings apart); returns max |got - f64|."""
+    y64 = A.double() @ x.double()
+    err = float((got.double() - y64).abs().max()) if got.numel() else 0.0
+    scale = float(y64.abs().max()) if got.numel() else 0.0
+    if got.dtype != A.dtype:
+        raise AssertionError(f"gemv {what}: {got.dtype}, want {A.dtype}")
+    if A.dtype == torch.float32:
+        if err > GEMV_F32_TOL * max(scale, 1e-30):
+            raise AssertionError(f"gemv {what}: {err:.3g} from f64")
+    elif not within_bf16_rounding(got, want, GEMV_F32_TOL * scale):
+        raise AssertionError(f"gemv {what}: more than one bf16 rounding "
+                             f"from the plain version")
+    return err
 
 
 def edge_checks(ops, ref, gen):
     """Small cases that reach each kernel's other branches: ragged tails,
-    unaligned views (the scalar paths), other dtypes and k."""
+    unaligned views (va's and gemv's second routes, the scalar paths), n and
+    M below one ring stage, K beyond one stage, other dtypes and k. Every
+    route of va and gemv must launch."""
+    from repro_torch.kernels import gemv as kgemv
+    from repro_torch.kernels import va as kva
     dev = "cuda"
+    routes = (kva.ROUTE_LAUNCHES, kgemv.ROUTE_LAUNCHES)
+    before = [dict(r) for r in routes]
     n = (1 << 20) + 3
     for dt in (torch.int32, torch.float32, torch.bfloat16):
         if dt == torch.int32:
@@ -919,8 +1007,16 @@ def edge_checks(ops, ref, gen):
         else:
             a, b = (torch.randn(n, generator=gen, device=dev).to(dt)
                     for _ in range(2))
-        for x, y in ((a, b), (a[1:], b[1:])):
-            if not torch.equal(ops.va(x, y), ref.va(x, y)):
+        stage = kva.STAGE_BYTES // a.element_size()
+        # ragged tail, unaligned, below one stage, one stage, whole stages
+        for x, y in ((a, b), (a[1:], b[1:]), (a[:100], b[:100]),
+                     (a[:stage], b[:stage]), (a[:-3], b[:-3])):
+            want = ref.va(x, y)
+            for route in ("stride",) if x.data_ptr() % 16 else kva.ROUTE_CODE:
+                if not torch.equal(kva.va(x, y, route), want):
+                    raise AssertionError(f"va {dt} n={x.numel()} route "
+                                         f"{route}: not exact")
+            if not torch.equal(ops.va(x, y), want):
                 raise AssertionError(f"va {dt} n={x.numel()}: not exact")
         for x in (a, a[1:], a[:1]):
             got, want = float(ops.reduction(x)), float(x.double().sum())
@@ -928,23 +1024,33 @@ def edge_checks(ops, ref, gen):
             if abs(got - want) > tol:
                 raise AssertionError(f"reduction {dt} n={x.numel()}: {got} "
                                      f"vs f64 {want}")
-    for m, k, adt, xdt in ((300, 700, torch.bfloat16, torch.bfloat16),
-                           (8, 8, torch.float32, torch.float32),
-                           (1000, 4096, torch.bfloat16, torch.float32),
-                           (77, 9000, torch.float32, torch.bfloat16),
-                           (1, 0, torch.float32, torch.float32)):
-        A = (torch.randn(m, k, generator=gen, device=dev) / 8).to(adt)
+    f32, bf16 = torch.float32, torch.bfloat16
+    # (M, K, A dtype, x dtype, offset of A in its buffer, route)
+    for m, k, adt, xdt, off, route in (
+            (300, 700, bf16, bf16, 0, "rows"),       # K * size % 16 != 0
+            (8, 8, f32, f32, 0, "ring"),
+            (3, 4096, bf16, bf16, 0, "ring"),        # M below one stage
+            (1000, 4096, bf16, f32, 0, "ring"),
+            (77, 9000, f32, bf16, 0, "ring"),        # K beyond one stage
+            (1001, 12800, bf16, bf16, 0, "ring"),
+            (129, 2048, f32, f32, 1, "rows"),        # unaligned A
+            (64, kgemv.MAX_RING_K + 4, f32, f32, 0, "rows"),   # x too long
+            (1, 0, f32, f32, 0, "rows")):
+        buf = (torch.randn(m * k + off, generator=gen, device=dev) / 8)
+        A = buf.to(adt)[off:].view(m, k)
         x = (torch.randn(k, generator=gen, device=dev) / 8).to(xdt)
-        got, want = ops.gemv(A, x), ref.gemv(A, x)
-        if adt == torch.float32:
-            y64 = A.double() @ x.double()
-            scale = max(float(y64.abs().max()), 1e-30)
-            ok = float((got.double() - y64).abs().max()) <= \
-                GEMV_F32_TOL * scale
-        else:
-            ok = within_bf16_rounding(got, want)
-        if not ok or got.dtype != adt:
-            raise AssertionError(f"gemv {m}x{k} {adt}/{xdt}: off")
+        if kgemv.plan_for(A).route != route:
+            raise AssertionError(f"gemv {m}x{k} offset {off}: route "
+                                 f"{kgemv.plan_for(A).route}, want {route}")
+        got = ops.gemv(A, x)
+        gemv_check(f"{m}x{k} {adt}/{xdt} {route}", A, x, got, ref.gemv(A, x))
+        if not torch.equal(got, ops.gemv(A, x)):
+            raise AssertionError(f"gemv {m}x{k}: two launches differ")
+    unused = [f"{name} {route}"
+              for name, r, b0 in zip(("va", "gemv"), routes, before)
+              for route in r if r[route] == b0[route]]
+    if unused:
+        raise AssertionError(f"edge cases never launched {unused}")
     xi = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
                        device=dev, dtype=torch.int32)
     xf = torch.randn(n, generator=gen, device=dev) * 100
@@ -955,11 +1061,17 @@ def edge_checks(ops, ref, gen):
                 raise AssertionError(f"stream_ops {x.dtype} k={k} "
                                      f"n={x.numel()}: not exact")
     log("  edge cases: va, reduction, gemv and stream_ops agree on ragged, "
-        "unaligned, other-dtype and other-k inputs")
+        "unaligned, below-one-stage, long-K, other-dtype and other-k "
+        "inputs; routes launched: va "
+        + str({r: kva.ROUTE_LAUNCHES[r] - before[0][r] for r in routes[0]})
+        + ", gemv "
+        + str({r: kgemv.ROUTE_LAUNCHES[r] - before[1][r] for r in routes[1]}))
 
 
 def streaming_kernels(ops, ref, kernels, int_rate):
     """Phase 6. Returns ({kernel: row}, launches of the ops path run)."""
+    from repro_torch.kernels import gemv as kgemv
+    from repro_torch.kernels import va as kva
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     edge_checks(ops, ref, gen)
@@ -977,6 +1089,8 @@ def streaming_kernels(ops, ref, kernels, int_rate):
     # the path: each kernel through its `ops` entry point, counted
     for kern in kernels.values():
         kern.launches = 0
+    for r in (kva.ROUTE_LAUNCHES, kgemv.ROUTE_LAUNCHES):
+        r.update(dict.fromkeys(r, 0))
     va_out = ops.va(*va_sets[0])
     red_out = ops.reduction(*red_sets[0])
     gemv_out = [ops.gemv(*sets[0]) for sets in gemv_sets]
@@ -985,6 +1099,24 @@ def streaming_kernels(ops, ref, kernels, int_rate):
     want = {"va": 1, "reduction": 1, "gemv": len(GEMV_CASES)}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"phase 6 launches {launches}, want {want}")
+    routes = {"va": dict(kva.ROUTE_LAUNCHES),
+              "gemv": dict(kgemv.ROUTE_LAUNCHES)}
+    log(f"  routes of the path's launches: {routes}")
+    if routes["va"]["ring"] != 1 or \
+            routes["gemv"]["ring"] != len(GEMV_CASES):
+        raise AssertionError(f"phase 6 routes {routes}: want va and every "
+                             f"gemv on the ring")
+    va_plan = kva.plan_for(*va_sets[0], va_out)
+    log(f"  va route {va_plan.route}, grid {va_plan.blocks} x "
+        f"{va_plan.threads}, {va_plan.smem} bytes of shared memory, "
+        f"{va_plan.units} stages cut {va_plan.per_block} (+1 for "
+        f"{va_plan.extra} blocks), tail {va_plan.tail}")
+    for (m, k, dt, what), sets in zip(GEMV_CASES, gemv_sets):
+        p = kgemv.plan_for(sets[0][0])
+        log(f"  gemv {what} route {p.route}, grid {p.blocks} x {p.threads}, "
+            f"{p.smem} bytes of shared memory, {m} rows cut {p.per_block} "
+            f"(+1 for {p.extra} blocks), stages of {p.kc} columns "
+            f"({p.stage_bytes} bytes)")
 
     rows = {}
     a, b = va_sets[0]
@@ -992,13 +1124,19 @@ def streaming_kernels(ops, ref, kernels, int_rate):
     va_err = max_abs_err(va_out, want)
     if not torch.equal(va_out, want):
         raise AssertionError("va at 2^27 int32: not bit-exact")
+    if not torch.equal(va_out, ops.va(a, b)):
+        raise AssertionError("va at 2^27 int32: two launches differ")
+    if not torch.equal(kva.va(a, b, "stride"), want):
+        raise AssertionError("va at 2^27 int32, route stride: not exact")
     del want
     rb, rf = bound(3 * 4 * n, n, int_rate)
     rows["va"] = {"case": "n=2^27 int32", "max_abs_err": va_err,
-                  "bound_ms": rb, "bound_by": rf,
-                  "ms": median_ms(ops.va, va_sets),
-                  "plain_ms": median_ms(ref.va, va_sets),
-                  "library_ms": median_ms(torch.add, va_sets)}
+                  "bound_ms": rb, "bound_by": rf, "route": va_plan.route,
+                  "grid": va_plan.blocks, "bit_identical_twice": True,
+                  **card_times(ops.va, ref.va, torch.add, va_sets)}
+    # the stride route, the kernel before the ring, on the same arrays
+    rows["va"]["stride_ms"] = graph_ms(
+        functools.partial(kva.va, route="stride"), va_sets)
 
     x = red_sets[0][0]
     exact = float(x.double().sum())
@@ -1014,32 +1152,30 @@ def streaming_kernels(ops, ref, kernels, int_rate):
         "max_abs_err": abs(got - float(ref.reduction(x))),
         "rel_err_vs_f64": abs(got - exact) / abs(exact),
         "bound_ms": rb, "bound_by": rf,
-        "ms": median_ms(ops.reduction, red_sets),
-        "plain_ms": median_ms(ref.reduction, red_sets),
-        "library_ms": median_ms(
-            lambda t: torch.sum(t, dtype=torch.float32), red_sets)}
+        **card_times(ops.reduction, ref.reduction,
+                     lambda t: torch.sum(t, dtype=torch.float32), red_sets)}
 
     gemv_rows = []
     for (m, k, dt, what), sets, got in zip(GEMV_CASES, gemv_sets, gemv_out):
         A, xv = sets[0]
         want_ = ref.gemv(A, xv)
-        y64 = A.double() @ xv.double()
-        err = float((got.double() - y64).abs().max())
-        if dt == torch.float32:
-            if err > GEMV_F32_TOL * float(y64.abs().max()):
-                raise AssertionError(f"gemv {what}: {err:.3g} from f64")
-        elif not within_bf16_rounding(got, want_):
-            raise AssertionError(f"gemv {what}: more than one bf16 "
-                                 f"rounding from the plain version")
+        err = gemv_check(what, A, xv, got, want_)
+        if not torch.equal(got, ops.gemv(A, xv)):
+            raise AssertionError(f"gemv {what}: two launches differ")
+        gemv_check(f"{what}, route rows", A, xv,
+                   kgemv.gemv(A, xv, "rows"), want_)
         isz = torch.finfo(dt).bits // 8
         rb, rf = bound(isz * (m * k + k + m), 2.0 * m * k, PEAK_FLOPS[dt])
+        p = kgemv.plan_for(A)
         gemv_rows.append({
             "case": f"{what} {m}x{k} {str(dt).split('.')[-1]}",
             "max_abs_err": float((got.float() - want_.float()).abs().max()),
             "max_abs_err_vs_f64": err, "bound_ms": rb, "bound_by": rf,
-            "ms": median_ms(ops.gemv, sets),
-            "plain_ms": median_ms(ref.gemv, sets, reps=5, per_rep=4),
-            "library_ms": median_ms(torch.mv, sets)})
+            "route": p.route, "grid": p.blocks, "bit_identical_twice": True,
+            **card_times(ops.gemv, ref.gemv, torch.mv, sets, 5, 4),
+            # the rows route on the same matrices: the first kernel
+            "rows_ms": graph_ms(functools.partial(kgemv.gemv, route="rows"),
+                                sets)})
     rows["gemv"] = gemv_rows[0]
     del va_sets, red_sets, gemv_sets, va_out, gemv_out
     torch.cuda.empty_cache()
@@ -1055,10 +1191,12 @@ def streaming_kernels(ops, ref, kernels, int_rate):
         if not torch.equal(got, want):
             raise AssertionError(f"stream_ops k={k} at 2^27: not bit-exact")
         del got, want
-        ms = median_ms(lambda t: ops.stream_ops(t, k), sets)
+        kernel = functools.partial(ops.stream_ops, ops_per_elem=k)
+        ms = graph_ms(kernel, sets)
         rb, rf = bound(8 * n, k * n, int_rate)
         curve.append({
-            "k": k, "oi_op_per_byte": k / 4.0, "ms": ms, "max_abs_err": err,
+            "k": k, "oi_op_per_byte": k / 4.0, "ms": ms,
+            "launched_ms": median_ms(kernel, sets), "max_abs_err": err,
             "bound_ms": rb,
             "bound_by": rf, "gops": k * n / ms / 1e6,
             "gb_per_s": 8 * n / ms / 1e6, "share_of_bound": rb / ms,
@@ -1071,6 +1209,7 @@ def streaming_kernels(ops, ref, kernels, int_rate):
                           "max_abs_err": pt["max_abs_err"],
                           "bound_ms": pt["bound_ms"],
                           "bound_by": pt["bound_by"], "ms": pt["ms"],
+                          "launched_ms": pt["launched_ms"],
                           "plain_ms": pt["plain_ms"], "library_ms": None}
     del sets
     torch.cuda.empty_cache()
@@ -1087,7 +1226,8 @@ def streaming_kernels(ops, ref, kernels, int_rate):
         "per element; op/B as in fig2_rows, adds per 4-byte element read)")
     for c in curve:
         log(f"    k={c['k']:3d} op/B={c['oi_op_per_byte']:6.2f} "
-            f"ms={c['ms']:.6g} bound_ms={c['bound_ms']:.6g} "
+            f"ms={c['ms']:.6g} launched_ms={c['launched_ms']:.6g} "
+            f"bound_ms={c['bound_ms']:.6g} "
             f"({c['bound_by']}) Gop/s={c['gops']:.6g} "
             f"GB/s={c['gb_per_s']:.6g} of_bound={c['share_of_bound']:.3f} "
             f"plain_ms={c['plain_ms']:.6g}")
@@ -1298,15 +1438,13 @@ def prim_kernels(ops, ref, kernels, int_rate):
     n, tiles = PRIM_SCAN_N, PRIM_SCAN_N // ref.SCAN_TILE
     rows = {}
     rb, rf = bound(8 * n + 4 * tiles, n, f32)
-    cumsum_ms = median_ms(lambda t: torch.cumsum(t, 0, dtype=torch.float32),
-                          scan_sets)
+    cumsum = functools.partial(torch.cumsum, dim=0, dtype=torch.float32)
     rows["scan_blocks"] = {
         "case": "n=2^27 int32 [-100,100)",
         "max_abs_err": errs["scan_blocks"],
         "bound_ms": rb, "bound_by": rf,
-        "ms": median_ms(scan_block.scan_blocks, scan_sets),
-        "plain_ms": median_ms(ref.scan_blocks, scan_sets, reps=3, per_rep=2),
-        "library_ms": cumsum_ms,
+        **card_times(scan_block.scan_blocks, ref.scan_blocks, cumsum,
+                     scan_sets, 3, 2),
         "library_call": "torch.cumsum(x, 0, dtype=torch.float32): the whole "
                         "scan, both phases"}
     add_sets = [(s, ref.tile_offsets(t)) for s, t in
@@ -1316,17 +1454,14 @@ def prim_kernels(ops, ref, kernels, int_rate):
         "case": "n=2^27 f32 scans + offsets -> int32",
         "max_abs_err": errs["add_offsets"],
         "bound_ms": rb, "bound_by": rf,
-        "ms": median_ms(lambda s, o: scan_block.add_offsets(s, o, torch.int32),
-                        add_sets),
-        "plain_ms": median_ms(lambda s, o: ref.add_offsets(s, o, torch.int32),
-                              add_sets, reps=3, per_rep=2),
-        "library_ms": median_ms(
-            lambda s, o: s.view(-1, ref.SCAN_TILE) + o[:, None], add_sets),
+        **card_times(lambda s, o: scan_block.add_offsets(s, o, torch.int32),
+                     lambda s, o: ref.add_offsets(s, o, torch.int32),
+                     lambda s, o: s.view(-1, ref.SCAN_TILE) + o[:, None],
+                     add_sets, 3, 2),
         "library_call": "scans.view(-1, 8192) + offsets[:, None]"}
     del add_sets
-    whole = {"ms": median_ms(ops.scan, scan_sets),
-             "plain_ms": median_ms(ref.scan, scan_sets, reps=3, per_rep=2),
-             "library_ms": cumsum_ms}
+    whole = card_times(ops.scan, ref.scan, None, scan_sets, 3, 2)
+    whole["library_ms"] = rows["scan_blocks"]["library_ms"]
     del scan_sets
     torch.cuda.empty_cache()
 
@@ -1341,10 +1476,11 @@ def prim_kernels(ops, ref, kernels, int_rate):
         hst_rows.append({
             "case": f"n=2^26 uint32 < 2^12, {b} bins", "max_abs_err": err,
             "bound_ms": rb, "bound_by": rf,
-            "ms": median_ms(lambda t: histogram.histogram(t, b), hst_sets),
-            "plain_ms": median_ms(lambda t: ref.histogram(t, b), hst_sets,
-                                  reps=3, per_rep=2),
-            "library_ms": median_ms(
+            **card_times(lambda t: histogram.histogram(t, b),
+                         lambda t: ref.histogram(t, b), None, hst_sets, 3, 2),
+            "library_ms": graph_ms(
+                lambda t: torch.histc(t, bins=b, min=0, max=1 << 12), hf_sets),
+            "library_launched_ms": median_ms(
                 lambda t: torch.histc(t, bins=b, min=0, max=1 << 12), hf_sets),
             "library_call": "torch.histc of an f32 copy over [0, 4096)"})
     rows["histogram"] = hst_rows[0]
@@ -1355,11 +1491,10 @@ def prim_kernels(ops, ref, kernels, int_rate):
     rows["ts_dists"] = {
         "case": f"n=2^26 int32, m={TS_M}", "max_abs_err": errs["ts_dists"],
         "bound_ms": rb, "bound_by": rf,
-        "ms": median_ms(ts.ts_dists, ts_sets),
-        "plain_ms": median_ms(ref.ts_dists, ts_sets, reps=3, per_rep=2),
-        "library_ms": None,
+        **card_times(ts.ts_dists, ref.ts_dists, None, ts_sets, 3, 2),
         "library_call": "none: no single call computes the windowed "
                         "distances with the same arithmetic"}
+    # launched: its d[i] reads the index on the host, which no graph holds
     ts_whole = median_ms(ops.ts_min, ts_sets)
     del ts_sets
 
@@ -1367,9 +1502,8 @@ def prim_kernels(ops, ref, kernels, int_rate):
     rows["transpose"] = {
         "case": "8192x8192 int32", "max_abs_err": errs["transpose"],
         "bound_ms": rb, "bound_by": rf,
-        "ms": median_ms(trns.transpose, trns_sets),
-        "plain_ms": median_ms(ref.trns, trns_sets),
-        "library_ms": median_ms(lambda A: A.t().contiguous(), trns_sets),
+        **card_times(trns.transpose, ref.trns, lambda A: A.t().contiguous(),
+                     trns_sets),
         "library_call": "A.t().contiguous() (also the plain version)"}
     del trns_sets
     torch.cuda.empty_cache()
@@ -1384,10 +1518,11 @@ def prim_kernels(ops, ref, kernels, int_rate):
         for k, v in r.items() if k != "case"))
     log(f"  ops.scan whole (both kernels + the fixed-order scan of the "
         f"{tiles} tile totals on the card), n=2^27 int32: ms={whole['ms']:.6g}, "
+        f"launched_ms={whole['launched_ms']:.6g}, "
         f"plain_ms={whole['plain_ms']:.6g}, torch.cumsum "
         f"ms={whole['library_ms']:.6g}")
     log(f"  ops.ts_min whole (ts_dists + torch.argmin), n=2^26, m={TS_M}: "
-        f"ms={ts_whole:.6g}")
+        f"launched_ms={ts_whole:.6g}")
     return rows, launches
 
 
@@ -1419,10 +1554,14 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
             f"-{max(regs, default=0)}, spill stores up to "
             f"{max(spills, default=0)} bytes")
-    for src in ("flash_attention.cu", "decode_attention.cu"):
-        for label, regs, spill in ptxas_per_kernel(_build.BUILD_LOG.get(src, "")):
+    for src in ("flash_attention.cu", "decode_attention.cu", "va.cu",
+                "gemv.cu"):
+        for label, regs, spill, smem in ptxas_per_kernel(
+                _build.BUILD_LOG.get(src, "")):
             log(f"    {src} {label}: {regs} registers, {spill} bytes spill "
-                f"stores")
+                f"stores, {smem} bytes static shared memory")
+    log(f"  bulk copies in the ring kernels' SASS: {bulk_copy_counts(_build)}"
+        f" (dynamic shared memory: phase 6 logs each launch's)")
     hmma = hmma_counts(_build)
     log(f"  HMMA instructions in the tensor-core flash kernels' SASS: {hmma}")
     sass = stream_sass_counts(_build)

@@ -3,9 +3,9 @@
 Every `csrc/*.cu` is compiled by `nvcc` for `sm_90a` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds, not minutes). Libraries land in
-`<repo>/build/repro_torch_kernels/<hash of the sources>/`, so an edited
-source never loads a stale build. All sources compile in parallel, one
-`nvcc` each.
+`<repo>/build/repro_torch_kernels/<hash of the sources and headers>/`, so
+an edited source or header never loads a stale build. All sources compile
+in parallel, one `nvcc` each.
 
 `CudaKernel` is one C entry point: the wrapper passes tensors' data
 pointers and PyTorch's current stream, the C function returns
@@ -38,8 +38,10 @@ def sources() -> list[Path]:
 
 
 def build_dir() -> Path:
+    """The build's directory, named by a hash of every source and header
+    in CSRC and the flags, so that no edit loads a stale library."""
     h = hashlib.sha256()
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

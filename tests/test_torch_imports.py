@@ -1,6 +1,7 @@
-"""The port stands alone: neither `repro_torch` nor chip_smoke.py and
-serve_pair.py import JAX or anything of the reference package, and its
-entry points default to the card instead of falling back to the CPU."""
+"""The port stands alone: neither `repro_torch` nor chip_smoke.py,
+serve_pair.py and ring_sweep.py import JAX or anything of the reference
+package, and its entry points default to the card instead of falling back
+to the CPU."""
 
 import ast
 import os
@@ -13,8 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                      ROOT / "serve_pair.py"]
+SCRIPTS = ("chip_smoke", "serve_pair", "ring_sweep")
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
 def test_importing_the_port_loads_no_jax():
@@ -24,7 +25,7 @@ def test_importing_the_port_loads_no_jax():
                for m in modules]
     code = ("import importlib, sys\n"
             f"for m in {modules!r}: importlib.import_module(m)\n"
-            "import chip_smoke, serve_pair\n"
+            f"import {', '.join(SCRIPTS)}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(len(sys.modules)); assert not bad, bad\n")
