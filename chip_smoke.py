@@ -93,9 +93,33 @@ Phases, each of which raises (exit code != 0) on failure:
    bound, its plain version and one library call (torch.cumsum for the
    whole scan, the broadcast add, torch.histc, A.t().contiguous(); none
    for ts), by CUDA-graph replay and launched, as in phase 6.
+9. Every PrIM workload's `run_pim` (`repro_torch.prim`, the 16 names of
+   the registry) on the card, on a `BankGrid` of one bank at the
+   workload's REF_N (NW at NW_CARD_N: its `ref` is a cell-by-cell loop on
+   the host; the cut is printed), then on 8 banks at 2^20 elements (GEMV,
+   MLP, NW, BFS and TRNS at the sizes of tests/test_prim_multibank.py), so
+   that the exchanges run on the card too. Each result is held to the
+   port's `ref` on the same tensors: as the same bits, SpMV within 1e-5 of
+   each row's sum of |products|. Counters are zeroed before each workload
+   and read after: VA, GEMV, MLP, RED, SCAN-SSA, SCAN-RSS, HST-S, HST-L,
+   TS and TRNS must launch exactly their kernels (gemv, reduction and the
+   scan pair all on their int32 routes), the others none. Each workload's
+   run and its `ref` are timed on the host clock (median of 5, host
+   included). Then the three int32 routes (reduction, the scan pair and
+   the whole int32 `ops.scan`, gemv at PrIM GEMV's and MLP's shapes) are
+   held bit-exact to their plain versions and timed by graph replay
+   beside their bounds and beside torch.sum(x, dtype=torch.int32) and
+   torch.cumsum(x, 0, dtype=torch.int32) (gemv has no int32 library call).
+10. The PrIM entry point, `python -m repro_torch.benchmarks.run
+   prim_bench` (its `main`, in process) on the card: it must pass, its
+   launches must be Table I's (one bank each), and the four Fig. 4 anchors
+   of the model must equal the reference's model numbers (FIG4_ANCHORS).
 
-The second-to-last line is the `kernels` JSON; the last line is
-`{"ok": true, "device": {...}}`.
+The second-to-last line is the `kernels` JSON: each kernel's `launches`
+are those of the phase that drives it (5 for the attention kernels, 6
+for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
+kernels) and its `prim_launches` those of phases 9 and 10 together. The
+last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -108,6 +132,7 @@ import statistics
 import subprocess
 import sys
 import time
+import zlib
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -178,6 +203,22 @@ PRIM_TRNS = 8192            # 8192 x 8192
 # f32 scan: largest error against an f64 cumsum, as a share of max |prefix|
 # (the band tests/test_torch_prim_kernels.py holds the plain scan to)
 SCAN_F32_TOL = 1e-5
+# phase 9: NW's `ref` is a cell-by-cell loop on the host, so NW runs at
+# this n, not its REF_N (4096); every other workload at its REF_N
+NW_CARD_N = 1024
+MULTIBANK = 8
+MULTIBANK_N = 1 << 20
+# tests/test_prim_multibank.py's sizes; TRNS at 1024 x 1024 = 2^20
+MULTIBANK_SIZES = {"NW": 128, "MLP": 256, "BFS": 256, "GEMV": 512,
+                   "TRNS": 1024}
+# the reference's Fig. 4 anchors (repro.core.perf_model over
+# repro.prim.all_ref_counts(); tests/test_torch_perf_model.py holds these
+# constants to it): modelled UPMEM / Xeon / Titan V numbers, not the card's
+FIG4_ANCHORS = {"avg_speedup_2556_vs_cpu": 24.055134942052366,
+                "avg_speedup_640_vs_cpu": 8.778363442742867,
+                "avg_speedup_2556_vs_gpu_suitable": 2.548827864194352,
+                "avg_energy_eff_640_vs_cpu": 1.519332134320881}
+FIG4_REL = 1e-12
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -592,14 +633,14 @@ def full_width_check(ops, ref):
         return greedy_run(cfg, params, prompt, 512, forced=forced)
 
     worst = {}
-    kfa.ROUTE_LAUNCHES.update(dict.fromkeys(kfa.ROUTES, 0))
+    kfa.KERNEL.reset()
     with torch.no_grad():
         with checked_attention(ops, ref, worst):
             toks_k, lg_k = run(cfg, params)
-        if kfa.ROUTE_LAUNCHES["tensor_core"] or \
-                not kfa.ROUTE_LAUNCHES["cuda_core"]:
-            raise AssertionError(f"full-width f32: flash routes "
-                                 f"{kfa.ROUTE_LAUNCHES}, want CUDA cores only")
+        routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
+        if routes["tensor_core"] or not routes["cuda_core"]:
+            raise AssertionError(f"full-width f32: flash routes {routes}, "
+                                 f"want CUDA cores only")
         with plain_attention(ops, ref):
             toks_p, lg_p = run(cfg, params)
             params = tree_map(lambda t: t.double(), params)
@@ -657,11 +698,11 @@ def full_width_bf16_check(ops, ref):
     max_len = BF16_PROMPT + 24
 
     worst = {}
-    kfa.ROUTE_LAUNCHES.update(dict.fromkeys(kfa.ROUTES, 0))
+    kfa.KERNEL.reset()
     with torch.no_grad():
         with checked_attention(ops, ref, worst):
             toks_k, lg_k = greedy_run(cfg, params, prompt, max_len)
-        routes = dict(kfa.ROUTE_LAUNCHES)
+        routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
         with plain_attention(ops, ref):
             _, lg_p = greedy_run(cfg, params, prompt, max_len, steps=0)
             params = tree_map(lambda t: t.float(), params)
@@ -755,11 +796,10 @@ def main_path(kernels):
         f"{sum(t.numel() for t in leaves)} parameters, {weight_bytes} bytes")
 
     for k in kernels.values():
-        k.launches = 0
-    kfa.ROUTE_LAUNCHES.update(dict.fromkeys(kfa.ROUTES, 0))
+        k.reset()
     done, metrics = serve(engine, reqs)
     launches = {name: k.launches for name, k in kernels.items()}
-    routes = dict(kfa.ROUTE_LAUNCHES)
+    routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
 
     if len(done) != len(reqs):
         raise AssertionError(f"{len(done)} of {len(reqs)} requests finished")
@@ -997,8 +1037,13 @@ def edge_checks(ops, ref, gen):
     from repro_torch.kernels import gemv as kgemv
     from repro_torch.kernels import va as kva
     dev = "cuda"
-    routes = (kva.ROUTE_LAUNCHES, kgemv.ROUTE_LAUNCHES)
-    before = [dict(r) for r in routes]
+    routes = {"va": (kva.KERNEL, tuple(kva.ROUTE_CODE)),
+              "gemv": (kgemv.KERNEL, tuple(kgemv.ROUTE_CODE))}
+
+    def launched():
+        return {(name, r): kern.route_count(r)
+                for name, (kern, names) in routes.items() for r in names}
+    before = launched()
     n = (1 << 20) + 3
     for dt in (torch.int32, torch.float32, torch.bfloat16):
         if dt == torch.int32:
@@ -1046,9 +1091,9 @@ def edge_checks(ops, ref, gen):
         gemv_check(f"{m}x{k} {adt}/{xdt} {route}", A, x, got, ref.gemv(A, x))
         if not torch.equal(got, ops.gemv(A, x)):
             raise AssertionError(f"gemv {m}x{k}: two launches differ")
-    unused = [f"{name} {route}"
-              for name, r, b0 in zip(("va", "gemv"), routes, before)
-              for route in r if r[route] == b0[route]]
+    after = launched()
+    unused = [f"{name} {r}" for (name, r), n in after.items()
+              if n == before[(name, r)]]
     if unused:
         raise AssertionError(f"edge cases never launched {unused}")
     xi = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
@@ -1062,10 +1107,9 @@ def edge_checks(ops, ref, gen):
                                      f"n={x.numel()}: not exact")
     log("  edge cases: va, reduction, gemv and stream_ops agree on ragged, "
         "unaligned, below-one-stage, long-K, other-dtype and other-k "
-        "inputs; routes launched: va "
-        + str({r: kva.ROUTE_LAUNCHES[r] - before[0][r] for r in routes[0]})
-        + ", gemv "
-        + str({r: kgemv.ROUTE_LAUNCHES[r] - before[1][r] for r in routes[1]}))
+        "inputs; routes launched: "
+        + str({f"{name} {r}": n - before[(name, r)]
+               for (name, r), n in after.items()}))
 
 
 def streaming_kernels(ops, ref, kernels, int_rate):
@@ -1088,9 +1132,7 @@ def streaming_kernels(ops, ref, kernels, int_rate):
 
     # the path: each kernel through its `ops` entry point, counted
     for kern in kernels.values():
-        kern.launches = 0
-    for r in (kva.ROUTE_LAUNCHES, kgemv.ROUTE_LAUNCHES):
-        r.update(dict.fromkeys(r, 0))
+        kern.reset()
     va_out = ops.va(*va_sets[0])
     red_out = ops.reduction(*red_sets[0])
     gemv_out = [ops.gemv(*sets[0]) for sets in gemv_sets]
@@ -1099,11 +1141,11 @@ def streaming_kernels(ops, ref, kernels, int_rate):
     want = {"va": 1, "reduction": 1, "gemv": len(GEMV_CASES)}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"phase 6 launches {launches}, want {want}")
-    routes = {"va": dict(kva.ROUTE_LAUNCHES),
-              "gemv": dict(kgemv.ROUTE_LAUNCHES)}
+    routes = {"va": dict(kva.KERNEL.route_launches),
+              "gemv": dict(kgemv.KERNEL.route_launches)}
     log(f"  routes of the path's launches: {routes}")
-    if routes["va"]["ring"] != 1 or \
-            routes["gemv"]["ring"] != len(GEMV_CASES):
+    if kva.KERNEL.route_count("ring") != 1 or \
+            kgemv.KERNEL.route_count("ring") != len(GEMV_CASES):
         raise AssertionError(f"phase 6 routes {routes}: want va and every "
                              f"gemv on the ring")
     va_plan = kva.plan_for(*va_sets[0], va_out)
@@ -1251,7 +1293,7 @@ def microbench_entry_point(kernels):
     from repro_torch.benchmarks import microbench, run
 
     for kern in kernels.values():
-        kern.launches = 0
+        kern.reset()
     if run.main(["microbench"]) != 0:
         raise AssertionError("repro_torch.benchmarks.run microbench failed")
     torch.cuda.synchronize()
@@ -1381,7 +1423,7 @@ def prim_kernels(ops, ref, kernels, int_rate):
 
     # the path: each entry point at its PrIM size, counted
     for kern in kernels.values():
-        kern.launches = 0
+        kern.reset()
     scan_out = ops.scan(*scan_sets[0])
     hst_out = [ops.histogram(*hst_sets[0], b) for b in HST_BINS]
     ts_out = ops.ts_min(*ts_sets[0])
@@ -1525,6 +1567,233 @@ def prim_kernels(ops, ref, kernels, int_rate):
         f"launched_ms={ts_whole:.6g}")
     return rows, launches
 
+# --------------------------------------------------------------------- #
+# phase 9: the PrIM workloads on the card
+# --------------------------------------------------------------------- #
+
+INT32_ROUTED = ("gemv", "reduction", "scan_blocks", "add_offsets")
+
+
+def prim_launches(name: str, banks: int) -> dict:
+    """The kernel launches of one run of workload `name` on `banks` banks:
+    one launch a bank-local phase, over all banks at once for VA, GEMV,
+    MLP (a layer) and TRNS, once a bank for the reductions over a shard
+    (RED, SCAN, HST, TS)."""
+    b = banks
+    return {"VA": {"va": 1}, "GEMV": {"gemv": 1}, "MLP": {"gemv": 3},
+            "RED": {"reduction": b},
+            "SCAN-SSA": {"scan_blocks": b, "add_offsets": b},
+            "SCAN-RSS": {"reduction": b, "scan_blocks": b,
+                         "add_offsets": b},
+            "HST-S": {"histogram": b}, "HST-L": {"histogram": b},
+            "TS": {"ts_dists": b}, "TRNS": {"transpose": 1}}.get(name, {})
+
+
+def reset_counts(kernels):
+    for kern in kernels.values():
+        kern.reset()
+
+
+def read_counts(kernels, what: str, want: dict) -> dict:
+    """Launch counts since `reset_counts`; raises unless they are `want`
+    (kernel -> launches, every other kernel 0) with every launch of gemv,
+    reduction and the scan pair on the int32 route."""
+    torch.cuda.synchronize()
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    full = {k: want.get(k, 0) for k in kernels}
+    if launches != full:
+        raise AssertionError(f"{what}: launches {launches}, want {full}")
+    for k in INT32_ROUTED:
+        if kernels[k].route_count("int32") != launches[k]:
+            raise AssertionError(f"{what}: {k} routes "
+                                 f"{dict(kernels[k].route_launches)}, want "
+                                 f"every launch on the int32 route")
+    return launches
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time (ms) of `fn` up to a card sync."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def prim_workloads(kernels):
+    """Phase 9, the workloads. Returns (launches of the counted runs per
+    kernel, rows of the one-bank runs)."""
+    from repro_torch import prim
+    from repro_torch.benchmarks.prim_bench import agrees
+    from repro_torch.core.bank_parallel import BankGrid
+    total = dict.fromkeys(kernels, 0)
+    rows = []
+    for banks in (1, MULTIBANK):
+        grid = BankGrid(banks, "cuda")
+        for name, mod in prim.WORKLOADS.items():
+            if banks == 1:
+                n = NW_CARD_N if name == "NW" else mod.REF_N
+            else:
+                n = MULTIBANK_SIZES.get(name, MULTIBANK_N)
+            gen = torch.Generator(device="cuda").manual_seed(
+                SEED + 9 + zlib.crc32(name.encode()))
+            inputs = prim.make_inputs(name, n, gen, "cuda")
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            got = mod.run_pim(grid, **inputs)
+            launches = read_counts(kernels, f"{name} on {banks} bank(s)",
+                                   prim_launches(name, banks))
+            for k, v in launches.items():
+                total[k] += v
+            want = mod.ref(**inputs)
+            if not agrees(name, got, want, inputs):
+                raise AssertionError(f"{name} n={n} on {banks} bank(s): "
+                                     f"run_pim disagrees with ref")
+            used = {k: v for k, v in launches.items() if v}
+            if banks == 1:
+                row = {"workload": name, "n": n,
+                       "ms": host_ms(lambda: mod.run_pim(grid, **inputs)),
+                       "ref_ms": host_ms(lambda: mod.ref(**inputs)),
+                       "launches": used}
+                rows.append(row)
+                cut = (f" (cut from REF_N {mod.REF_N}: the plain oracle is "
+                       f"a cell-by-cell loop on the host)"
+                       if n != mod.REF_N else "")
+                log(f"  {name} n={n}{cut}, 1 bank: equal to ref; run_pim "
+                    f"{row['ms']:.6g} ms, ref {row['ref_ms']:.6g} ms "
+                    f"(host clock, median of 5); launches {used}")
+            else:
+                log(f"  {name} n={n}, {banks} banks: equal to ref; "
+                    f"launches {used}")
+            del inputs, got, want
+            torch.cuda.empty_cache()
+    return total, rows
+
+
+def int32_routes(ops, ref, int_rate):
+    """Phase 9, the int32 routes at PrIM's sizes: bit-exact against their
+    plain versions, timed by graph replay beside their bounds and the
+    library's int32 calls. Returns {route: row}."""
+    from repro_torch.kernels import gemv as kgemv
+    from repro_torch.kernels import reduction as kred
+    from repro_torch.kernels import scan_block as kscan
+    i32 = torch.int32
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 90)
+    ints = functools.partial(int32_randint, gen)
+    n, tiles = PRIM_N, PRIM_N // ref.SCAN_TILE
+    rows = {}
+
+    red_sets = [(ints(-1000, 1000, n),) for _ in range(2)]
+    x = red_sets[0][0]
+    got, want = kred.reduction(x, i32), ref.reduction(x, i32)
+    if not torch.equal(got, want) or int(got) != int(torch.sum(x, dtype=i32)):
+        raise AssertionError("int32 reduction at 2^27: not exact")
+    rb, rf = bound(4 * n + 4, n, int_rate)
+    rows["reduction int32"] = {
+        "case": "n=2^27 int32 [-1000,1000) -> int32", "max_abs_err": 0.0,
+        "bound_ms": rb, "bound_by": rf,
+        **card_times(lambda t: kred.reduction(t, i32),
+                     lambda t: ref.reduction(t, i32),
+                     lambda t: torch.sum(t, dtype=i32), red_sets),
+        "library_call": "torch.sum(x, dtype=torch.int32)"}
+    del red_sets, x
+
+    scan_sets = [(ints(-100, 100, n),) for _ in range(2)]
+    x = scan_sets[0][0]
+    (sk, tk), (sp, tp) = kscan.scan_blocks(x, i32), ref.scan_blocks(x, i32)
+    off = ref.tile_offsets(tk)
+    ak = kscan.add_offsets(sk, off, i32)
+    exact = torch.cumsum(x, 0, dtype=i32)
+    if not (torch.equal(sk, sp) and torch.equal(tk, tp) and torch.equal(
+            ak, ref.add_offsets(sk, off, i32)) and torch.equal(ak, exact)
+            and torch.equal(ops.scan(x, acc=i32), exact)):
+        raise AssertionError("int32 scan at 2^27: not exact")
+    del sk, tk, sp, tp, off, ak, exact
+    cumsum = functools.partial(torch.cumsum, dim=0, dtype=i32)
+    rb, rf = bound(8 * n + 4 * tiles, n, int_rate)
+    rows["scan_blocks int32"] = {
+        "case": "n=2^27 int32 [-100,100) -> int32 scans, totals",
+        "max_abs_err": 0.0, "bound_ms": rb, "bound_by": rf,
+        **card_times(lambda t: kscan.scan_blocks(t, i32),
+                     lambda t: ref.scan_blocks(t, i32), cumsum, scan_sets,
+                     3, 2),
+        "library_call": "torch.cumsum(x, 0, dtype=torch.int32): the whole "
+                        "scan, both phases"}
+    add_sets = [(s, ref.tile_offsets(t)) for s, t in
+                (kscan.scan_blocks(xs, i32) for (xs,) in scan_sets)]
+    rows["add_offsets int32"] = {
+        "case": "n=2^27 int32 scans + int32 offsets -> int32",
+        "max_abs_err": 0.0, "bound_ms": rb, "bound_by": rf,
+        **card_times(lambda s, o: kscan.add_offsets(s, o, i32),
+                     lambda s, o: ref.add_offsets(s, o, i32),
+                     lambda s, o: s.view(-1, ref.SCAN_TILE) + o[:, None],
+                     add_sets, 3, 2),
+        "library_call": "scans.view(-1, 8192) + offsets[:, None]"}
+    del add_sets
+    whole = card_times(lambda t: ops.scan(t, acc=i32),
+                       lambda t: ref.scan(t, i32), cumsum, scan_sets, 3, 2)
+    rb, rf = bound(8 * n, n, int_rate)
+    rows["ops.scan int32"] = {
+        "case": "n=2^27 int32, both kernels + the tile offsets",
+        "max_abs_err": 0.0, "bound_ms": rb, "bound_by": rf, **whole,
+        "library_call": "torch.cumsum(x, 0, dtype=torch.int32)"}
+    del scan_sets
+    torch.cuda.empty_cache()
+
+    for m, k, lo, hi, what in ((8192, 2048, 0, 64, "PrIM GEMV"),
+                               (4096, 4096, -4, 5, "PrIM MLP layer")):
+        sets = [(ints(lo, hi, m, k), ints(lo, hi, k)) for _ in range(3)]
+        A, xv = sets[0]
+        got = kgemv.gemv(A, xv)
+        if not torch.equal(got, ref.gemv(A, xv, i32)):
+            raise AssertionError(f"int32 gemv {what}: not exact")
+        rb, rf = bound(4 * (m * k + k + m), 2 * m * k, int_rate)
+        rows[f"gemv int32 {what}"] = {
+            "case": f"{m}x{k} int32 [{lo},{hi}), route "
+                    f"{kgemv.plan_for(A).route}",
+            "max_abs_err": 0.0, "bound_ms": rb, "bound_by": rf,
+            **card_times(kgemv.gemv, lambda a, v: ref.gemv(a, v, i32), None,
+                         sets, 3, 2),
+            "library_call": "none: the card has no int32 matmul"}
+        del sets, A, xv, got
+    torch.cuda.empty_cache()
+    for name, r in rows.items():
+        log(f"  {name} {r['case']}: " + ", ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k != "case"))
+    return rows
+
+
+# --------------------------------------------------------------------- #
+# phase 10: the PrIM entry point
+# --------------------------------------------------------------------- #
+
+def prim_entry_point(kernels):
+    """`python -m repro_torch.benchmarks.run prim_bench`, in process."""
+    from repro_torch import prim
+    from repro_torch.benchmarks import prim_bench, run
+    want = {}
+    for name in prim.WORKLOADS:
+        for k, v in prim_launches(name, 1).items():
+            want[k] = want.get(k, 0) + v
+    reset_counts(kernels)
+    if run.main(["prim_bench"]) != 0:
+        raise AssertionError("repro_torch.benchmarks.run prim_bench failed")
+    launches = read_counts(kernels, "prim_bench", want)
+    log(f"  launches {launches} (Table I, one bank each)")
+    fig = prim_bench.fig4()
+    for name, ref_value in FIG4_ANCHORS.items():
+        got = getattr(fig, name)
+        log(f"  Fig. 4 anchor {name} (modelled): {got!r}, the reference's "
+            f"{ref_value!r}")
+        if abs(got - ref_value) > FIG4_REL * abs(ref_value):
+            raise AssertionError(f"Fig. 4 anchor {name}: {got!r}, the "
+                                 f"reference's model gives {ref_value!r}")
+    return launches
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1600,12 +1869,25 @@ def main() -> int:
 
     log("phase 8: PrIM bank-local kernels at PrIM's sizes, through ops")
     prim_rows, launches8 = prim_kernels(ops, ref, kernels, int_rate)
+    torch.cuda.empty_cache()
+
+    log(f"phase 9: the 16 PrIM workloads on the card, 1 bank at REF_N "
+        f"(NW at {NW_CARD_N}), then {MULTIBANK} banks")
+    launches9, _ = prim_workloads(kernels)
+    int32_routes(ops, ref, int_rate)
+
+    log("phase 10: the PrIM entry point, repro_torch.benchmarks.run "
+        "prim_bench")
+    launches10 = prim_entry_point(kernels)
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
     launches["stream_ops"] = launches7["stream_ops"]
     for name in prim_rows:
         launches[name] = launches8[name]
+    # the PrIM path's own count, beside (not added to) the phase above
+    prim_path = {k: launches9[k] + launches10[k] for k in launches}
+    log(f"  launches on the PrIM path (phases 9 and 10): {prim_path}")
     stream_rows.update(prim_rows)
     for name in ("decode_attention", "flash_attention"):
         # the bf16 row at the main path's first shape
@@ -1632,6 +1914,7 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/"
                       f"{source.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
+            "prim_launches": prim_path[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

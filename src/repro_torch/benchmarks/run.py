@@ -1,6 +1,8 @@
 """Benchmark orchestrator of the port — one module per paper figure:
 
   microbench        Fig. 2 (throughput vs OI), Fig. 3 (op/dtype throughput)
+  prim_bench        Table I (16 PrIM workloads, bank-parallel vs oracle),
+                    Fig. 4 (cross-system model)
 
 Only the ported modules are registered; the rest of the reference's
 `benchmarks/` comes with later slices of the port.
@@ -45,8 +47,8 @@ class Report:
 
 
 def main(argv=None) -> int:
-    from . import microbench
-    modules = {"microbench": microbench}
+    from . import microbench, prim_bench
+    modules = {"microbench": microbench, "prim_bench": prim_bench}
     ap = argparse.ArgumentParser(prog="repro_torch.benchmarks.run")
     ap.add_argument("modules", nargs="*", metavar="module",
                     help=f"any of {list(modules)} (default: all)")

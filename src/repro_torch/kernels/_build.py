@@ -10,12 +10,16 @@ in parallel, one `nvcc` each.
 `CudaKernel` is one C entry point: the wrapper passes tensors' data
 pointers and PyTorch's current stream, the C function returns
 `cudaGetLastError()`, and a non-zero code raises. `launches` counts the
-launches that went through, so a run can show its path used the kernel.
+launches that went through, so a run can show its path used the kernel;
+`route_launches` counts them by the route label a wrapper gives: the
+accumulator of reduction and scan ("f32", "int32"), va's and flash's
+route, gemv's accumulator and route ("int32/ring"). `reset` zeroes both.
 `check_cuda` holds the preconditions every wrapper checks before a launch.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -116,9 +120,15 @@ class CudaKernel:
     def __init__(self, stem: str, symbol: str, argtypes: list):
         self.stem, self.symbol, self.argtypes = stem, symbol, argtypes
         self.launches = 0
+        self.route_launches: collections.Counter = collections.Counter()
         self._fn = None
 
-    def launch(self, *args) -> None:
+    def reset(self) -> None:
+        """Zero the launch counts."""
+        self.launches = 0
+        self.route_launches.clear()
+
+    def launch(self, *args, route: str | None = None) -> None:
         if self._fn is None:
             lib = library(self.stem)
             fn = getattr(lib, self.symbol)
@@ -132,3 +142,11 @@ class CudaKernel:
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
                                f"{rc} ({msg})")
         self.launches += 1
+        if route is not None:
+            self.route_launches[route] += 1
+
+    def route_count(self, part: str) -> int:
+        """Launches whose route label has `part` as one of its
+        "/"-separated parts ("ring" counts "f32/ring" and "int32/ring")."""
+        return sum(n for r, n in self.route_launches.items()
+                   if part in r.split("/"))

@@ -1,5 +1,9 @@
 // Matrix-vector product y = A x, A (M, K) row-major, x (K,), accumulated in
-// f32, y in A's type (PrIM GEMV; one bank's shard of a decode GEMV).
+// f32, y in A's type (PrIM GEMV; one bank's shard of a decode GEMV); or, on
+// the int32 route, A and x int32 with every multiply and add wrapping at
+// 2^32 and y int32: what the reference's PrIM GEMV (uint32, whose bits the
+// int32 route gives) and MLP (int32) compute with x64 off
+// (src/repro/prim/gemv.py, mlp.py).
 //
 // Replaces: src/repro/kernels/gemv.py, gemv_tiled (body _gemv_kernel), and
 // the wrapper's padding to (256, 512) tiles and its cast of the f32 result
@@ -32,7 +36,10 @@
 //   not all 16-byte aligned takes the same loop with one element per lane
 //   and step.
 // Either way each row ends in a fixed-order warp shuffle tree and lane 0
-// writes it: every launch gives the same bits.
+// writes it: every launch gives the same bits. The int32 route runs both
+// routes with an unsigned 32-bit accumulator (x staged as its int32 bits in
+// the same shared array): multiply-add mod 2^32 gives the reference's bits
+// in any order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,13 +60,31 @@ constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
 constexpr int kChunk = 8192;   // x values staged at once (32 KB of f32)
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+// an x value as the 32 bits staged in shared memory: f32, or int32's bits
+__device__ __forceinline__ float stage(float x) { return x; }
+__device__ __forceinline__ float stage(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float stage(int x) { return __int_as_float(x); }
 
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+// the accumulator of each type of A: f32, or unsigned for the int32 route
+template <typename T> struct Acc { using type = float; };
+template <> struct Acc<int> { using type = unsigned; };
+
+template <typename T> __device__ __forceinline__ T from_acc(typename Acc<T>::type x);
+template <> __device__ __forceinline__ float from_acc<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_acc<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+template <> __device__ __forceinline__ int from_acc<int>(unsigned x) {
+  return static_cast<int>(x);
+}
+
+// acc + a * x for one element a of A and one staged x value
+__device__ __forceinline__ float mac(float acc, float a, float x) { return fmaf(a, x, acc); }
+__device__ __forceinline__ float mac(float acc, __nv_bfloat16 a, float x) {
+  return fmaf(__bfloat162float(a), x, acc);
+}
+__device__ __forceinline__ unsigned mac(unsigned acc, int a, float x) {
+  return acc + static_cast<unsigned>(a) * __float_as_uint(x);
 }
 
 // dot of one 16-byte vector of A with the matching x values in shared memory
@@ -82,20 +107,25 @@ __device__ __forceinline__ float dot16(float acc, const uint4& a, const float* x
   acc = fmaf(__uint_as_float(a.w << 16), x1.z, acc);
   return fmaf(__uint_as_float(a.w & 0xffff0000u), x1.w, acc);
 }
+__device__ __forceinline__ unsigned dot16(unsigned acc, const uint4& a, const float* xs, int) {
+  const uint4 x = *reinterpret_cast<const uint4*>(xs);
+  return acc + a.x * x.x + a.y * x.y + a.z * x.z + a.w * x.w;
+}
 
 template <typename T, typename X, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 gemv_kernel(const T* __restrict__ A, const X* __restrict__ x, T* __restrict__ y,
             int M, int K) {
+  using Ac = typename Acc<T>::type;
   constexpr int V = 16 / sizeof(T);
   extern __shared__ float xs[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int row0 = blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  float acc[kRowsPerWarp];
+  Ac acc[kRowsPerWarp];
   const T* rows[kRowsPerWarp];
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    acc[r] = 0.f;
+    acc[r] = Ac(0);
     // rows past M read row M - 1 (a valid address) and are never written
     rows[r] = A + (size_t)min(row0 + r, M - 1) * K;
   }
@@ -103,7 +133,7 @@ gemv_kernel(const T* __restrict__ A, const X* __restrict__ x, T* __restrict__ y,
   for (int c0 = 0; c0 < K; c0 += kChunk) {
     const int kc = min(kChunk, K - c0);
     __syncthreads();   // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kc; i += kThreads) xs[i] = to_f32(x[c0 + i]);
+    for (int i = threadIdx.x; i < kc; i += kThreads) xs[i] = stage(x[c0 + i]);
     __syncthreads();
     if (VEC) {
       for (int k = lane * V; k < kc; k += 32 * V) {
@@ -118,22 +148,26 @@ gemv_kernel(const T* __restrict__ A, const X* __restrict__ x, T* __restrict__ y,
       for (int k = lane; k < kc; k += 32) {
 #pragma unroll
         for (int r = 0; r < kRowsPerWarp; ++r)
-          acc[r] = fmaf(to_f32(rows[r][c0 + k]), xs[k], acc[r]);
+          acc[r] = mac(acc[r], rows[r][c0 + k], xs[k]);
       }
     }
   }
 
 #pragma unroll
   for (int r = 0; r < kRowsPerWarp; ++r) {
-    float v = acc[r];
+    Ac v = acc[r];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0 && row0 + r < M) y[row0 + r] = from_f32<T>(v);
+    if (lane == 0 && row0 + r < M) y[row0 + r] = from_acc<T>(v);
   }
 }
 
-// 16 bytes of x (4 f32 or 8 bf16) as f32 into shared memory
+// 16 bytes of x (4 f32, 4 int32 or 8 bf16) staged into shared memory: f32
+// and int32 as their bits, bf16 as f32
 __device__ __forceinline__ void put_f32(float* xs, const uint4& v, float) {
+  *reinterpret_cast<uint4*>(xs) = v;
+}
+__device__ __forceinline__ void put_f32(float* xs, const uint4& v, int) {
   *reinterpret_cast<uint4*>(xs) = v;
 }
 __device__ __forceinline__ void put_f32(float* xs, const uint4& v, __nv_bfloat16) {
@@ -145,7 +179,7 @@ __device__ __forceinline__ void put_f32(float* xs, const uint4& v, __nv_bfloat16
                   __uint_as_float(v.w << 16), __uint_as_float(v.w & 0xffff0000u));
 }
 
-// x (K,) as f32 into xs by `threads` threads, thread `t`. Where x is 16-byte
+// x (K,) staged (`stage`) into xs by `threads` threads, thread `t`. Where x is 16-byte
 // aligned and whole vectors, each thread keeps 8 16-byte loads in flight,
 // so that one round trip to memory stages x at the shapes of the path.
 template <typename X>
@@ -166,7 +200,7 @@ __device__ __forceinline__ void stage_x(const X* __restrict__ x, float* xs, int 
     }
   } else {
 #pragma unroll 8
-    for (int k = t; k < K; k += threads) xs[k] = to_f32(x[k]);
+    for (int k = t; k < K; k += threads) xs[k] = stage(x[k]);
   }
 }
 
@@ -176,6 +210,7 @@ template <typename T, typename X>
 __global__ void __launch_bounds__(kRingThreads, 1)
 gemv_ring_kernel(const T* __restrict__ A, const X* __restrict__ x, T* __restrict__ y, int K,
                  int kc, long long per_block, long long extra) {
+  using Ac = typename Acc<T>::type;
   constexpr int V = 16 / sizeof(T);
   constexpr int R = kRingWarps;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -213,16 +248,16 @@ gemv_ring_kernel(const T* __restrict__ A, const X* __restrict__ x, T* __restrict
     return;
   }
 
-  // x as f32, once per block, while the first stages are in flight
+  // x staged, once per block, while the first stages are in flight
   stage_x(x, xs, K, threadIdx.x, kRingWarps * 32);
   bulk_ring::named_sync(1, kRingThreads);   // x staged, barriers initialised
-  float acc = 0.f;
+  Ac acc = Ac(0);
   for (long long i = 0; i < iters; ++i) {
     const long long g = i / chunks;
     const int c = static_cast<int>(i % chunks);
     const int k0 = c * kc, kk = min(kc, K - k0);
     const bool mine = warp < count - g * R;   // the stage holds my row
-    if (c == 0) acc = 0.f;
+    if (c == 0) acc = Ac(0);
     ring.wait_full(i);
     if (mine) {
       const T* a = reinterpret_cast<const T*>(stages + (i % kRingStages) * stage_bytes) + warp * kk;
@@ -232,10 +267,10 @@ gemv_ring_kernel(const T* __restrict__ A, const X* __restrict__ x, T* __restrict
     }
     ring.release(i);
     if (mine && c == chunks - 1) {
-      float v = acc;
+      Ac v = acc;
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      if (lane == 0) y[first + g * R + warp] = from_f32<T>(v);
+      if (lane == 0) y[first + g * R + warp] = from_acc<T>(v);
     }
   }
 }
@@ -299,8 +334,8 @@ extern "C" const char* error_string(int code) {
 }
 
 // A: contiguous (M, K); x: contiguous (K,); y: (M,) in A's type.
-// a_dtype, x_dtype: 1 f32, 2 bf16. route: 0 rows, 1 ring; blocks: the grid;
-// per_block, extra: the ring's cut of the M rows over the blocks; kc: the
+// a_dtype, x_dtype: 1 f32, 2 bf16, or both 0 (int32, the int32 route).
+// route: 0 rows, 1 ring; blocks: the grid; per_block, extra: the ring's cut of the M rows over the blocks; kc: the
 // ring's columns a stage (K, or a chunk of it).
 extern "C" int gemv(const void* A, const void* x, void* y, int M, int K, int a_dtype,
                     int x_dtype, int route, int blocks, long long per_block, long long extra,
@@ -309,6 +344,8 @@ extern "C" int gemv(const void* A, const void* x, void* y, int M, int K, int a_d
       extra < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (a_dtype == 0 && x_dtype == 0)
+    return launch<int, int>(A, x, y, M, K, route, blocks, per_block, extra, kc, st);
   if (a_dtype == 1 && x_dtype == 1)
     return launch<float, float>(A, x, y, M, K, route, blocks, per_block, extra, kc, st);
   if (a_dtype == 1 && x_dtype == 2)

@@ -10,7 +10,7 @@ Two routes, chosen here by `route(dtype, head_dim)` before the launch:
 bf16 with a head_dim that is a multiple of 16 runs on the tensor cores
 (mma.sync), everything else (f32, other bf16 head dims) on CUDA cores in
 f32. No route is taken because another failed. `KERNEL.launches` counts
-every launch, `ROUTE_LAUNCHES` the launches of each route.
+every launch, `KERNEL.route_launches` the launches of each route.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ KERNEL = CudaKernel("flash_attention", "flash_attention",
                     [_P, _P, _P, _P] + [_I] * 6 + [_L] * 9 + [_I] * 4 + [_P])
 MAX_HEAD_DIM = 256
 ROUTES = ("cuda_core", "tensor_core")     # the kernel's route code is the index
-ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -60,6 +59,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, skv, h, kvh, hd, *strides, int(causal), int(window),
                   int(q.dtype == torch.bfloat16), ROUTES.index(r),
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    ROUTE_LAUNCHES[r] += 1
+                  torch.cuda.current_stream(q.device).cuda_stream, route=r)
     return out

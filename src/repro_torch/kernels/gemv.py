@@ -1,7 +1,10 @@
 """Matrix-vector product on the card: `csrc/gemv.cu`.
 
 Replaces `repro/kernels/gemv.py::gemv_tiled` together with its wrapper's
-padding and cast: y = A x with f32 accumulation, returned in A's dtype.
+padding and cast: y = A x with f32 accumulation, returned in A's dtype
+(the "f32" route), or, for int32 A and x, with every multiply and add
+wrapping at 2^32 into int32 (the "int32" route: PrIM GEMV's uint32 bits
+and MLP's int32, as the reference computes them with x64 off).
 The plain version is `ref.gemv`; `ops.gemv` picks between them by the
 tensors' device. Not on the serving path: the model's projections stay
 `torch.matmul`, as the reference leaves them to XLA.
@@ -11,7 +14,8 @@ streaming its contiguous rows through a ring of bulk copies,
 `csrc/bulk_ring.cuh`)
 where A is 16-byte aligned, K * size is a multiple of 16 and x fits in
 shared memory as f32 beside the ring, else "rows" (the 32-rows-a-block
-kernel). `ROUTE_LAUNCHES` counts the launches of each route.
+kernel). `KERNEL.route_launches` counts the launches by accumulator and
+route ("f32/ring", "int32/rows", ...).
 """
 
 from __future__ import annotations
@@ -26,9 +30,9 @@ from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("gemv", "gemv", [_P, _P, _P] + [_I] * 6 + [_L, _L, _I, _P])
-DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}
+DTYPE_CODE = {torch.float32: 1, torch.bfloat16: 2}   # the f32 route's
+INT32_CODE = 0                                       # A and x, int32 route
 ROUTE_CODE = {"rows": 0, "ring": 1}
-ROUTE_LAUNCHES = {route: 0 for route in ROUTE_CODE}
 # kRingStages, kRingWarps of csrc/gemv.cu; a stage holds a row for each warp
 STAGES, RING_WARPS = 4, 4
 # bytes of A a stage holds at most: 16 KB stages start the stream sooner
@@ -104,18 +108,25 @@ def plan_for(A: torch.Tensor, route: str | None = None) -> Plan:
 def gemv(A: torch.Tensor, x: torch.Tensor, route: str | None = None
          ) -> torch.Tensor:
     """Launch the kernel. A: contiguous (M, K), x: contiguous (K,), each f32
-    or bf16, on one CUDA device; M >= 1. Returns (M,) in A's dtype.
-    `route` None lets `plan` choose; a route name times that route."""
+    or bf16, or both int32 (the int32 route), on one CUDA device; M >= 1.
+    Returns (M,) in A's dtype. `route` None lets `plan` choose; a route
+    name times that route."""
     check_cuda("gemv", A, x)
+    exact = A.dtype == torch.int32
+    if exact != (x.dtype == torch.int32) or not exact and (
+            A.dtype not in DTYPE_CODE or x.dtype not in DTYPE_CODE):
+        raise ValueError(f"gemv kernel takes A and x of {tuple(DTYPE_CODE)}, "
+                         f"or both int32; got {A.dtype}, {x.dtype}")
+    codes = ((INT32_CODE, INT32_CODE) if exact
+             else (DTYPE_CODE[A.dtype], DTYPE_CODE[x.dtype]))
     m, k = A.shape
     if not (1 <= m < 2 ** 31 - 64 and k < 2 ** 31):
         raise ValueError(f"gemv kernel takes 1 <= M < 2^31 - 64 and "
                          f"K < 2^31, got A {tuple(A.shape)}")
     p = plan_for(A, route)
     y = torch.empty(m, dtype=A.dtype, device=A.device)
-    KERNEL.launch(A.data_ptr(), x.data_ptr(), y.data_ptr(), m, k,
-                  DTYPE_CODE[A.dtype], DTYPE_CODE[x.dtype],
+    KERNEL.launch(A.data_ptr(), x.data_ptr(), y.data_ptr(), m, k, *codes,
                   ROUTE_CODE[p.route], p.blocks, p.per_block, p.extra, p.kc,
-                  torch.cuda.current_stream(A.device).cuda_stream)
-    ROUTE_LAUNCHES[p.route] += 1
+                  torch.cuda.current_stream(A.device).cuda_stream,
+                  route=f"{'int32' if exact else 'f32'}/{p.route}")
     return y

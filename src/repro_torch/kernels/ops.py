@@ -8,6 +8,13 @@ The streaming kernels (`va`, `gemv`, `reduction`, `stream_ops`) take the
 flat 1-D arrays of `repro.kernels.ops` and return what it returns; the
 kernels mask their own ragged edges, so nothing is padded. So do the PrIM
 bank-local kernels behind `scan`, `histogram`, `ts_min` and `transpose`.
+
+`gemv`, `reduction` and the scan entry points take `acc`: f32 (the
+default, the Pallas kernels' contract) or int32, the int32 route, for
+int32 data: int32 out, every add and multiply wrapping at 2^32, which is
+what the reference's PrIM workloads compute with x64 off. `scan_blocks`,
+`tile_offsets` and `add_offsets` expose SCAN's steps for `repro_torch.prim`,
+which puts the exchange between the banks between them.
 """
 
 from __future__ import annotations
@@ -99,9 +106,26 @@ def va(a, b):
     return _va.va(a, b)
 
 
-def gemv(A, x):
+def _check_acc(name, acc, *tensors):
+    if acc == torch.float32:
+        return
+    if acc != torch.int32 or any(t.dtype != torch.int32 for t in tensors):
+        raise ValueError(f"{name}: acc must be f32, or int32 with int32 "
+                         f"inputs; got acc {acc}, inputs "
+                         f"{[t.dtype for t in tensors]}")
+
+
+def gemv(A, x, acc=torch.float32):
     """y = A x for A (M, K), x (K,), each f32 or bf16; f32 accumulation,
-    y (M,) in A's dtype."""
+    y (M,) in A's dtype. acc int32: A and x int32, y int32 (wrapping)."""
+    if acc != torch.float32:
+        _check_acc("gemv", acc, A, x)
+        if A.dim() != 2 or x.dim() != 1 or x.shape[0] != A.shape[1]:
+            raise ValueError(f"gemv: want A (M, K) and x (K,), got "
+                             f"{tuple(A.shape)}, {tuple(x.shape)}")
+        if A.device.type == "cpu":
+            return ref.gemv(A, x, acc)
+        return _gemv.gemv(A, x)
     dtypes = tuple(_gemv.DTYPE_CODE)
     if A.dim() != 2 or A.dtype not in dtypes:
         raise ValueError(f"gemv: A must be 2-D of one of {dtypes}, got "
@@ -115,12 +139,14 @@ def gemv(A, x):
     return _gemv.gemv(A, x)
 
 
-def reduction(x):
-    """Sum of an (n,) int32, f32 or bf16 array as a 0-dim f32 tensor."""
+def reduction(x, acc=torch.float32):
+    """Sum of an (n,) int32, f32 or bf16 array as a 0-dim f32 tensor; acc
+    int32: of an int32 array as a 0-dim int32 (wrapping)."""
     _check_vector("reduction", tuple(_red.DTYPE_CODE), x)
+    _check_acc("reduction", acc, x)
     if x.device.type == "cpu":
-        return ref.reduction(x)
-    return _red.reduction(x)
+        return ref.reduction(x, acc)
+    return _red.reduction(x, acc)
 
 
 def stream_ops(x, ops_per_elem: int):
@@ -137,16 +163,44 @@ def stream_ops(x, ops_per_elem: int):
     return _mb.stream_ops(x, ops_per_elem)
 
 
-def scan(x):
+def scan(x, acc=torch.float32):
     """Inclusive prefix sum of an (n,) int32 or f32 array through SCAN-SSA's
-    phases (f32 inside, result in x's dtype, int32 truncated): the
-    `scan_blocks` kernel, a fixed-order scan of the tile totals on the
-    same device (`ref.tile_offsets`), the `add_offsets` kernel."""
+    phases (f32 inside, result in x's dtype, int32 truncated; acc int32:
+    int32 inside, wrapping): the `scan_blocks` kernel, a fixed-order scan
+    of the tile totals on the same device (`tile_offsets`), the
+    `add_offsets` kernel."""
     _check_vector("scan", tuple(_scan.DTYPE_CODE), x)
+    _check_acc("scan", acc, x)
     if x.device.type == "cpu":
-        return ref.scan(x)
-    scans, totals = _scan.scan_blocks(x)
-    return _scan.add_offsets(scans, ref.tile_offsets(totals), x.dtype)
+        return ref.scan(x, acc)
+    scans, totals = _scan.scan_blocks(x, acc)
+    return _scan.add_offsets(scans, tile_offsets(totals), x.dtype)
+
+
+def scan_blocks(x, acc=torch.float32):
+    """SCAN's phase 1 on an (n,) int32 or f32 array: (scans (n,), totals
+    (ceil(n / 8192),)) of each 8192-element tile, both of `acc`."""
+    _check_vector("scan_blocks", tuple(_scan.DTYPE_CODE), x)
+    _check_acc("scan_blocks", acc, x)
+    if x.device.type == "cpu":
+        return ref.scan_blocks(x, acc)
+    return _scan.scan_blocks(x, acc)
+
+
+def tile_offsets(totals):
+    """SCAN's step between its two phases within a bank: each tile's
+    exclusive offset from the tile totals of `scan_blocks`, in their dtype,
+    by a fixed-order scan on their device (plain torch ops, no kernel)."""
+    return ref.tile_offsets(totals)
+
+
+def add_offsets(scans, offsets, dtype=torch.float32):
+    """SCAN's phase 3: scans (n,) plus one offset per 8192-element tile,
+    both f32 (out f32, or int32 truncated) or both int32 (out int32)."""
+    if scans.device.type == "cpu":
+        _scan.check_add_offsets(scans, offsets, dtype)
+        return ref.add_offsets(scans, offsets, dtype)
+    return _scan.add_offsets(scans, offsets, dtype)    # checks its arguments
 
 
 def histogram(x, bins: int):
@@ -183,9 +237,10 @@ def ts_min(series, query):
 
 
 def transpose(A):
-    """(M, N) -> (N, M) for an f32 or int32 matrix."""
-    if A.dim() != 2 or A.dtype not in _trns.DTYPES:
-        raise ValueError(f"transpose: want a 2-D array of one of "
+    """(M, N) -> (N, M) for an f32 or int32 matrix, or (B, M, N) ->
+    (B, N, M) for a batch of them (B < 65536)."""
+    if A.dim() not in (2, 3) or A.dtype not in _trns.DTYPES:
+        raise ValueError(f"transpose: want a 2-D or 3-D array of one of "
                          f"{_trns.DTYPES}, got {tuple(A.shape)} {A.dtype}")
     if A.device.type == "cpu":
         return ref.trns(A)

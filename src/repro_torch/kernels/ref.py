@@ -8,7 +8,11 @@ result is cast to q's dtype, as in `repro.kernels.ref`; `gemv` and
 `reduction` accumulate in f32 as their oracles there do. The PrIM
 bank-local kernels (`scan_blocks`/`add_offsets`, `histogram`, `ts_dists`,
 `trns`) follow the Pallas bodies' arithmetic step by step, in f32, so the
-CUDA kernels can match them bit for bit on the card.
+CUDA kernels can match them bit for bit on the card. `gemv`, `reduction`
+and the scan pair also have an int32 route (`acc=torch.int32`): int32 in
+and out, every add and multiply wrapping at 2^32, as XLA's int32 does in
+the reference's PrIM workloads (x64 off). Integer addition mod 2^32 is
+associative, so these routes agree bit for bit in any order.
 """
 
 from __future__ import annotations
@@ -66,13 +70,25 @@ def va(a, b):
     return a + b
 
 
-def gemv(A, x):
-    """A: (M, K); x: (K,) -> (M,) in A's dtype, accumulated in f32."""
+def _wrap32(x):
+    """int64 -> int32 keeping the low 32 bits (two's complement)."""
+    return x.to(torch.int32)
+
+
+def gemv(A, x, acc=torch.float32):
+    """A: (M, K); x: (K,) -> (M,) in A's dtype, accumulated in f32; with
+    acc int32 (int32 A and x), products and sums wrapping at 2^32: an int64
+    multiply-and-sum cut to 32 bits (the card has no int32 matmul)."""
+    if acc == torch.int32:
+        return _wrap32((A.long() * x.long()).sum(1))
     return (A.float() @ x.float()).to(A.dtype)
 
 
-def reduction(x):
-    """Sum of every element as a 0-dim f32 tensor, f32 accumulation."""
+def reduction(x, acc=torch.float32):
+    """Sum of every element as a 0-dim f32 tensor, f32 accumulation; with
+    acc int32 (int32 x), the sum wrapping at 2^32 as a 0-dim int32."""
+    if acc == torch.int32:
+        return _wrap32(x.long().sum())
     return torch.sum(x.float())
 
 
@@ -95,8 +111,9 @@ HST_SHIFT = 12                         # histogram values are < 2**12
 def _cumsum_doubling(y):
     """Inclusive prefix sum along the last axis by doubling: at step
     s = 1, 2, 4, ... every element from s on adds the one s before it, in
-    f32. The scan kernel adds in this order, so the two agree bit for bit
-    on any data (torch.cumsum's order depends on the device)."""
+    y's dtype (f32; int32 wraps). The scan kernel adds in this order, so
+    the two agree bit for bit on any data (torch.cumsum's order depends on
+    the device)."""
     s = 1
     while s < y.shape[-1]:
         y = torch.cat((y[..., :s], y[..., s:] + y[..., :-s]), dim=-1)
@@ -104,15 +121,16 @@ def _cumsum_doubling(y):
     return y
 
 
-def scan_blocks(x):
+def scan_blocks(x, acc=torch.float32):
     """Phase 1 of SCAN-SSA on the flat (n,) array: the row-major inclusive
-    scan of each 64x128 tile in f32, and each tile's total, as the Pallas
-    body computes them (lane scan, row offsets = scan of the row totals
-    minus the row totals, add). The ragged last tile counts as padded with
-    zeros. Returns (scans (n,) f32, totals (ceil(n / 8192),) f32)."""
+    scan of each 64x128 tile in `acc` (f32, or int32 for int32 x, wrapping),
+    and each tile's total, as the Pallas body computes them (lane scan, row
+    offsets = scan of the row totals minus the row totals, add). The ragged
+    last tile counts as padded with zeros. Returns (scans (n,), totals
+    (ceil(n / 8192),)), both of `acc`."""
     n = x.numel()
     tiles = -(-n // SCAN_TILE)
-    xf = torch.zeros(tiles * SCAN_TILE, dtype=torch.float32, device=x.device)
+    xf = torch.zeros(tiles * SCAN_TILE, dtype=acc, device=x.device)
     xf[:n] = x
     lane = _cumsum_doubling(xf.view(tiles, SCAN_ROWS, SCAN_LANES))
     row_tot = lane[:, :, -1]
@@ -123,27 +141,30 @@ def scan_blocks(x):
 
 def tile_offsets(totals):
     """SCAN-SSA's step between the phases: each tile's exclusive offset as
-    the inclusive scan of the totals minus the totals, in f32, as
-    `repro.kernels.ops.scan` computes it. The scan is the doubling one, on
-    the totals' device: elementwise adds in a fixed order, so every launch
-    and the CPU give the same bits (torch.cumsum on the card is a
-    single-pass scan whose f32 sums depend on timing)."""
+    the inclusive scan of the totals minus the totals, in the totals' dtype
+    (f32, as `repro.kernels.ops.scan` computes it; int32 wraps). The scan
+    is the doubling one, on the totals' device: elementwise adds in a
+    fixed order, so every launch and the CPU give the same bits
+    (torch.cumsum on the card is a single-pass scan whose f32 sums depend
+    on timing)."""
     return _cumsum_doubling(totals) - totals
 
 
 def add_offsets(scans, offsets, dtype=torch.float32):
-    """Phase 3 of SCAN-SSA: scans (n,) f32 plus one f32 offset per 8192
-    elements, cast to `dtype` (f32 -> int32 truncates, as XLA's convert)."""
+    """Phase 3 of SCAN-SSA: scans (n,) plus one offset per 8192 elements,
+    both f32 (cast to `dtype`: f32 -> int32 truncates, as XLA's convert) or
+    both int32 (int32, wrapping)."""
     n = scans.numel()
     pad = offsets.numel() * SCAN_TILE - n
     full = torch.nn.functional.pad(scans, (0, pad)).view(-1, SCAN_TILE)
     return (full + offsets[:, None]).view(-1)[:n].to(dtype)
 
 
-def scan(x):
+def scan(x, acc=torch.float32):
     """Inclusive prefix sum of an (n,) array through SCAN-SSA's phases,
-    f32 inside, returned in x's dtype (`repro.kernels.ops.scan`)."""
-    scans, totals = scan_blocks(x)
+    `acc` inside (f32, or int32 for int32 x), returned in x's dtype
+    (`repro.kernels.ops.scan`)."""
+    scans, totals = scan_blocks(x, acc)
     return add_offsets(scans, tile_offsets(totals), x.dtype)
 
 
@@ -173,5 +194,5 @@ def ts_dists(series, query):
 
 
 def trns(A):
-    """(M, N) -> (N, M)."""
-    return A.t().contiguous()
+    """(M, N) -> (N, M), or (B, M, N) -> (B, N, M)."""
+    return A.transpose(-1, -2).contiguous()

@@ -9,7 +9,7 @@ tensors' device.
 contiguous ranges of whole 8 KB stages through a ring of bulk copies,
 `csrc/bulk_ring.cuh`, and writing through bulk stores) when a, b and the
 output are 16-byte aligned, else "stride" (the grid-stride kernel).
-`ROUTE_LAUNCHES` counts the launches of each route.
+`KERNEL.route_launches` counts the launches of each route.
 """
 
 from __future__ import annotations
@@ -26,7 +26,6 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("va", "va", [_P, _P, _P, _L, _I, _I, _I, _L, _L, _P])
 DTYPE_CODE = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 ROUTE_CODE = {"stride": 0, "ring": 1}      # route -> its code in csrc/va.cu
-ROUTE_LAUNCHES = {route: 0 for route in ROUTE_CODE}
 # kStages, kStageBytes, kConsumerWarps of csrc/va.cu
 STAGES, STAGE_BYTES, CONSUMER_WARPS = 4, 8192, 8
 # ranges in the grid per SM: many short ranges, so that the block scheduler
@@ -91,6 +90,6 @@ def va(a: torch.Tensor, b: torch.Tensor, route: str | None = None
     KERNEL.launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(),
                   DTYPE_CODE[a.dtype], ROUTE_CODE[p.route], p.blocks,
                   p.per_block, p.extra,
-                  torch.cuda.current_stream(a.device).cuda_stream)
-    ROUTE_LAUNCHES[p.route] += 1
+                  torch.cuda.current_stream(a.device).cuda_stream,
+                  route=p.route)
     return out

@@ -54,8 +54,11 @@ def test_no_reference_imports(path):
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
-    from repro_torch import bridge
+    from repro_torch import bridge, prim
+    from repro_torch.benchmarks import prim_bench
+    from repro_torch.benchmarks import run as bench_run
     from repro_torch.configs import REDUCED
+    from repro_torch.core.bank_parallel import BankGrid
     from repro_torch.launch import serve
     from repro_torch.models import init_cache, init_params
     from repro_torch.serve import ServeEngine
@@ -65,6 +68,10 @@ def test_entry_points_default_to_the_card():
                  lambda: init_params(0, cfg),
                  lambda: init_cache(cfg, 1, 8),
                  lambda: bridge.params_from_numpy({"a": [1.0]}),
-                 lambda: serve.main(["--arch", "granite-3-8b", "--reduced"])):
+                 lambda: serve.main(["--arch", "granite-3-8b", "--reduced"]),
+                 lambda: BankGrid(8),
+                 lambda: prim.make_inputs("VA", 8, torch.Generator()),
+                 lambda: prim_bench.run(bench_run.Report()),
+                 lambda: bench_run.main(["prim_bench"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

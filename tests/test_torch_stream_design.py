@@ -186,11 +186,28 @@ def test_ring_wrappers_refuse_cpu_tensors_with_a_route():
     for call in (lambda: kva.va(a, a, "ring"),
                  lambda: kgemv.gemv(A, x, "rows")):
         before = (kva.KERNEL.launches, kgemv.KERNEL.launches,
-                  dict(kva.ROUTE_LAUNCHES), dict(kgemv.ROUTE_LAUNCHES))
+                  dict(kva.KERNEL.route_launches),
+                  dict(kgemv.KERNEL.route_launches))
         with pytest.raises(ValueError, match="CUDA"):
             call()
         assert before == (kva.KERNEL.launches, kgemv.KERNEL.launches,
-                          kva.ROUTE_LAUNCHES, kgemv.ROUTE_LAUNCHES)
+                          kva.KERNEL.route_launches,
+                          kgemv.KERNEL.route_launches)
+
+
+def test_route_count_reads_the_label_parts():
+    """gemv labels its launches accumulator/route; `route_count` sums them
+    by either part, and `reset` clears them with the launch count."""
+    kern = _build.CudaKernel("gemv", "gemv", [])
+    kern.launches = 4
+    kern.route_launches.update({"f32/ring": 2, "int32/ring": 1,
+                                "int32/rows": 1})
+    assert kern.route_count("ring") == 3
+    assert kern.route_count("int32") == 2
+    assert kern.route_count("rows") == 1
+    assert kern.route_count("in") == 0
+    kern.reset()
+    assert kern.launches == 0 and not kern.route_launches
 
 
 def test_aligned():
