@@ -9,7 +9,7 @@ Phases, each of which raises (exit code != 0) on failure:
    versions; TF32 off for matmuls and cuDNN.
 2. Build: every `src/repro_torch/kernels/csrc/*.cu` with nvcc for sm_90a
    (one nvcc each, in parallel), with registers, spills and static shared
-   memory of each attention, va and gemv kernel. The SASS of every ring
+   memory of each attention, va, gemv and scan kernel. The SASS of every ring
    kernel of va and gemv (`csrc/bulk_ring.cuh`) must hold bulk copies
    (UBLKCP: cp.async.bulk). Then `cuobjdump -sass` of the built stream_ops
    library counts the integer adds per element of its k = 128 instance,
@@ -79,7 +79,9 @@ Phases, each of which raises (exit code != 0) on failure:
    kernel and nothing else.
 8. The PrIM bank-local kernels at PrIM's sizes, through `kernels.ops`
    (counters zeroed before, read after): `ops.scan` on 2^27 int32 in
-   [-100, 100) (one scan_blocks and one add_offsets launch), `ops.histogram`
+   [-100, 100) with the f32 accumulator (one scan_blocks and one
+   add_offsets launch) and on the int32 route (one scan_lookback launch),
+   `ops.histogram`
    on 2^26 uint32 < 2^12 at 256 and 4096 bins (HST-S, HST-L: two
    histogram launches), `ops.ts_min` on a 2^26 int32 series with m = 8
    (one ts_dists launch), `ops.transpose` of 8192 x 8192 int32 (one
@@ -89,7 +91,8 @@ Phases, each of which raises (exit code != 0) on failure:
    unaligned lengths, n < 128, f32 scan data (within 1e-5 of max |prefix|
    of an f64 cumsum and no further than the plain version), out-of-range
    histogram values (dropped), a planted ts tie (first index), one window
-   (m = n), m = 512, 8191 x 8193. Then each kernel is timed beside its
+   (m = n), m = 512, a query longer than the series ((inf, 0) with no
+   launch), 8191 x 8193. Then each kernel is timed beside its
    bound, its plain version and one library call (torch.cumsum for the
    whole scan, the broadcast add, torch.histc, A.t().contiguous(); none
    for ts), by CUDA-graph replay and launched, as in phase 6.
@@ -102,14 +105,21 @@ Phases, each of which raises (exit code != 0) on failure:
    port's `ref` on the same tensors: as the same bits, SpMV within 1e-5 of
    each row's sum of |products|. Counters are zeroed before each workload
    and read after: VA, GEMV, MLP, RED, SCAN-SSA, SCAN-RSS, HST-S, HST-L,
-   TS and TRNS must launch exactly their kernels (gemv, reduction and the
-   scan pair all on their int32 routes), the others none. Each workload's
-   run and its `ref` are timed on the host clock (median of 5, host
-   included). Then the three int32 routes (reduction, the scan pair and
-   the whole int32 `ops.scan`, gemv at PrIM GEMV's and MLP's shapes) are
-   held bit-exact to their plain versions and timed by graph replay
-   beside their bounds and beside torch.sum(x, dtype=torch.int32) and
-   torch.cumsum(x, 0, dtype=torch.int32) (gemv has no int32 library call).
+   TS and TRNS must launch exactly their kernels (gemv, reduction,
+   add_offsets and the single-pass scan_lookback all on their int32
+   routes), the others none. Each workload's run and its `ref` are timed
+   on the host clock (median of 5, host included). Then the single-pass
+   scan is held bit-exact to its plain version and to torch.cumsum(x, 0,
+   dtype=torch.int32) (plus the carry) with carries 0, 2^31 - 1 and -2^31,
+   on data whose sums wrap, at n = 1, 31, one tile - 1, one tile, one tile
+   + 1, 2^20 + 3 and 2^27 + 5, on unaligned views, on three replays of a
+   CUDA graph of it, and over STRESS_LAUNCHES back-to-back launches on two
+   streams. Then the int32 routes (reduction, the scan pair, the whole
+   int32 `ops.scan` on the single-pass kernel and as the pair, gemv at
+   PrIM GEMV's and MLP's shapes) are held bit-exact to their plain
+   versions and timed by graph replay beside their bounds and beside
+   torch.sum(x, dtype=torch.int32) and torch.cumsum(x, 0,
+   dtype=torch.int32) (gemv has no int32 library call).
 10. The PrIM entry point, `python -m repro_torch.benchmarks.run
    prim_bench` (its `main`, in process) on the card: it must pass, its
    launches must be Table I's (one bank each), and the four Fig. 4 anchors
@@ -118,7 +128,8 @@ Phases, each of which raises (exit code != 0) on failure:
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
 for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
-kernels) and its `prim_launches` those of phases 9 and 10 together. The
+kernels, scan_lookback included) and its `prim_launches` those of phases 9
+and 10 together. The
 last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -207,6 +218,10 @@ SCAN_F32_TOL = 1e-5
 # this n, not its REF_N (4096); every other workload at its REF_N
 NW_CARD_N = 1024
 MULTIBANK = 8
+# phase 9: back-to-back launches of the single-pass scan over 2^22 elements
+# (512 tiles), alternating between two streams, each result compared
+STRESS_LAUNCHES = 400
+STRESS_N = 1 << 22
 MULTIBANK_N = 1 << 20
 # tests/test_prim_multibank.py's sizes; TRNS at 1024 x 1024 = 2^20
 MULTIBANK_SIZES = {"NW": 128, "MLP": 256, "BFS": 256, "GEMV": 512,
@@ -904,15 +919,16 @@ def kernel_label(mangled: str) -> str:
     """`flash_mma_kernel<128>` for a mangled kernel name of csrc/."""
     m = re.search(r"([A-Za-z][A-Za-z_]*?_kernel)I(.+?)EEv", mangled)
     if not m:
-        return mangled
+        plain = re.search(r"\d([A-Za-z][A-Za-z_]*?_kernel)E?P", mangled)
+        return plain.group(1) if plain else mangled
     args, rest = [], m.group(2)
     while rest:
         n = re.match(r"Li(\d+)E", rest)
         if rest.startswith("13__nv_bfloat16"):
             args.append("bf16")
             rest = rest[len("13__nv_bfloat16"):]
-        elif rest.startswith("f"):
-            args.append("f32")
+        elif rest[0] in "fij":
+            args.append({"f": "f32", "i": "int32", "j": "uint32"}[rest[0]])
             rest = rest[1:]
         elif n:
             args.append(n.group(1))
@@ -1387,6 +1403,17 @@ def prim_edge_checks(ops, ref, gen):
         if not torch.equal(dk, dp) or int(i) != int(torch.argmin(dp)) \
                 or not torch.equal(d, dp.min()):
             raise AssertionError(f"ts n={n} m={m} {dt}: not exact")
+    before = ts.KERNEL.launches
+    for n, m, dt in ((16, 32, torch.int32), (1, 2, torch.float32),
+                     (100, 512, torch.int32)):
+        d, i = ops.ts_min(ints(-100, 100, n).to(dt), ints(-100, 100, m).to(dt))
+        if not (d.is_cuda and i.is_cuda and d.dim() == 0 and i.dim() == 0
+                and d.dtype == torch.float32 and i.dtype == torch.int32
+                and float(d) == float("inf") and int(i) == 0):
+            raise AssertionError(f"ts n={n} < m={m} {dt}: got ({d}, {i}), "
+                                 f"want (inf, 0)")
+    if ts.KERNEL.launches != before:
+        raise AssertionError("ts with m > n launched the kernel")
     series, query = ints(-100, 100, 1 << 20), ints(-100, 100, TS_M)
     for p in (1000, 500_000):            # the same window twice: a tie at 0
         series[p:p + TS_M] = query
@@ -1402,7 +1429,7 @@ def prim_edge_checks(ops, ref, gen):
             if not torch.equal(ops.transpose(A), A.t()):
                 raise AssertionError(f"transpose {m}x{n} {dt}: not exact")
     log("  edge cases: scan, histogram, ts and transpose agree on ragged, "
-        "unaligned, small, out-of-range, tied and m = n inputs")
+        "unaligned, small, out-of-range, tied, m = n and m > n inputs")
 
 
 def prim_kernels(ops, ref, kernels, int_rate):
@@ -1425,13 +1452,15 @@ def prim_kernels(ops, ref, kernels, int_rate):
     for kern in kernels.values():
         kern.reset()
     scan_out = ops.scan(*scan_sets[0])
+    scan32_out = ops.scan(*scan_sets[0], acc=torch.int32)
     hst_out = [ops.histogram(*hst_sets[0], b) for b in HST_BINS]
     ts_out = ops.ts_min(*ts_sets[0])
     trns_out = ops.transpose(*trns_sets[0])
     torch.cuda.synchronize()
     launches = {name: kern.launches for name, kern in kernels.items()}
     want = {name: 0 for name in kernels}
-    want.update(scan_blocks=1, add_offsets=1, histogram=len(HST_BINS),
+    want.update(scan_blocks=1, add_offsets=1, scan_lookback=1,
+                histogram=len(HST_BINS),
                 ts_dists=1, transpose=1)
     log(f"  launches {launches}")
     if launches != want:
@@ -1443,6 +1472,8 @@ def prim_kernels(ops, ref, kernels, int_rate):
     x = scan_sets[0][0]
     if not torch.equal(scan_out, ref.scan(x)):
         raise AssertionError("scan at 2^27 int32: not bit-exact")
+    if not torch.equal(scan32_out, ref.scan(x, torch.int32)):
+        raise AssertionError("scan at 2^27 int32, int32 route: not bit-exact")
     (sk, tk), (sp, tp) = scan_block.scan_blocks(x), ref.scan_blocks(x)
     errs["scan_blocks"] = max(max_abs_err(sk, sp), max_abs_err(tk, tp))
     off = ref.tile_offsets(tk)
@@ -1473,7 +1504,7 @@ def prim_kernels(ops, ref, kernels, int_rate):
     errs["transpose"] = max_abs_err(trns_out, want)
     if not torch.equal(trns_out, want):
         raise AssertionError("transpose 8192x8192: not exact")
-    del scan_out, hst_out, trns_out, dk, dp, want
+    del scan_out, scan32_out, hst_out, trns_out, dk, dp, want
     torch.cuda.empty_cache()
 
     f32 = PEAK_FLOPS[torch.float32]
@@ -1571,7 +1602,8 @@ def prim_kernels(ops, ref, kernels, int_rate):
 # phase 9: the PrIM workloads on the card
 # --------------------------------------------------------------------- #
 
-INT32_ROUTED = ("gemv", "reduction", "scan_blocks", "add_offsets")
+INT32_ROUTED = ("gemv", "reduction", "scan_blocks", "add_offsets",
+                "scan_lookback")
 
 
 def prim_launches(name: str, banks: int) -> dict:
@@ -1582,9 +1614,8 @@ def prim_launches(name: str, banks: int) -> dict:
     b = banks
     return {"VA": {"va": 1}, "GEMV": {"gemv": 1}, "MLP": {"gemv": 3},
             "RED": {"reduction": b},
-            "SCAN-SSA": {"scan_blocks": b, "add_offsets": b},
-            "SCAN-RSS": {"reduction": b, "scan_blocks": b,
-                         "add_offsets": b},
+            "SCAN-SSA": {"scan_lookback": b, "add_offsets": b},
+            "SCAN-RSS": {"reduction": b, "scan_lookback": b},
             "HST-S": {"histogram": b}, "HST-L": {"histogram": b},
             "TS": {"ts_dists": b}, "TRNS": {"transpose": 1}}.get(name, {})
 
@@ -1597,7 +1628,7 @@ def reset_counts(kernels):
 def read_counts(kernels, what: str, want: dict) -> dict:
     """Launch counts since `reset_counts`; raises unless they are `want`
     (kernel -> launches, every other kernel 0) with every launch of gemv,
-    reduction and the scan pair on the int32 route."""
+    reduction, the scan pair and scan_lookback on the int32 route."""
     torch.cuda.synchronize()
     launches = {k: kern.launches for k, kern in kernels.items()}
     full = {k: want.get(k, 0) for k in kernels}
@@ -1672,6 +1703,85 @@ def prim_workloads(kernels):
     return total, rows
 
 
+def scan_lookback_checks(ref, gen):
+    """Phase 9: the single-pass scan bit-exact against its plain version
+    and against torch.cumsum int32 (plus the carry): carries, wrapping
+    sums, edge lengths, unaligned views, graph replays, and a stress loop
+    of back-to-back launches on two streams."""
+    from repro_torch.kernels import scan_block as kscan
+    i32, dev, tile = torch.int32, "cuda", ref.SCAN_TILE
+    ints = functools.partial(int32_randint, gen)
+    carries = [None] + [torch.tensor([c], dtype=i32, device=dev)
+                        for c in (0, 2**31 - 1, -2**31)]
+
+    def exact(x, carry):
+        want = torch.cumsum(x, 0, dtype=i32)
+        return want if carry is None else want + carry
+
+    def check(x, carry, what):
+        got = kscan.scan_lookback(x, carry)
+        if not (torch.equal(got, exact(x, carry))
+                and torch.equal(got, ref.scan_add(x, carry))):
+            c = None if carry is None else int(carry)
+            raise AssertionError(f"scan_lookback {what}, carry {c}: not "
+                                 f"exact")
+
+    lengths = (1, 31, tile - 1, tile, tile + 1, (1 << 20) + 3,
+               (1 << 27) + 5)
+    for n in lengths:
+        small = ints(-100, 100, n + 1)             # PrIM's data
+        wide = ints(-2**31, 2**31 - 1, n + 1)      # sums wrap at once
+        for carry in carries:
+            check(small[:n], carry, f"n={n} [-100,100)")
+            check(wide[:n], carry, f"n={n} wrapping")
+            check(wide[1:], carry, f"n={n} wrapping, unaligned view")
+        del small, wide
+    torch.cuda.empty_cache()
+
+    # a CUDA graph of one launch replays the scratch's reset with it
+    x = ints(-2**31, 2**31 - 1, STRESS_N)
+    want = exact(x, None)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kscan.scan_lookback(x)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = kscan.scan_lookback(x)
+    torch.cuda.current_stream().wait_stream(side)
+    for r in range(3):
+        out.zero_()
+        graph.replay()
+        if not torch.equal(out, want):
+            raise AssertionError(f"scan_lookback graph replay {r}: not "
+                                 f"exact")
+    del graph, out
+
+    # back-to-back launches, alternating between two streams, each
+    # result compared on the card; one sync at the end
+    carry = carries[2]
+    want_c = exact(x, carry)
+    bad = [torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2)]
+    side.wait_stream(torch.cuda.current_stream())
+    t0 = time.perf_counter()
+    for i in range(STRESS_LAUNCHES):
+        if i % 2:
+            with torch.cuda.stream(side):
+                bad[1] += (kscan.scan_lookback(x, carry) != want_c).sum()
+        else:
+            bad[0] += (kscan.scan_lookback(x) != want).sum()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if int(bad[0]) or int(bad[1]):
+        raise AssertionError(f"scan_lookback stress: {int(bad[0])} and "
+                             f"{int(bad[1])} wrong elements over "
+                             f"{STRESS_LAUNCHES} launches")
+    log(f"  scan_lookback bit-exact vs its plain version and torch.cumsum "
+        f"int32 at n={lengths}, carries None/0/2^31-1/-2^31, wrapping "
+        f"data, unaligned views, 3 graph replays, and {STRESS_LAUNCHES} "
+        f"back-to-back launches over 2^22 on two streams ({secs:.3g} s)")
+
+
 def int32_routes(ops, ref, int_rate):
     """Phase 9, the int32 routes at PrIM's sizes: bit-exact against their
     plain versions, timed by graph replay beside their bounds and the
@@ -1684,6 +1794,7 @@ def int32_routes(ops, ref, int_rate):
     ints = functools.partial(int32_randint, gen)
     n, tiles = PRIM_N, PRIM_N // ref.SCAN_TILE
     rows = {}
+    scan_lookback_checks(ref, gen)
 
     red_sets = [(ints(-1000, 1000, n),) for _ in range(2)]
     x = red_sets[0][0]
@@ -1732,12 +1843,24 @@ def int32_routes(ops, ref, int_rate):
                      add_sets, 3, 2),
         "library_call": "scans.view(-1, 8192) + offsets[:, None]"}
     del add_sets
-    whole = card_times(lambda t: ops.scan(t, acc=i32),
-                       lambda t: ref.scan(t, i32), cumsum, scan_sets, 3, 2)
+
+    def pair_scan(t):
+        scans, totals = kscan.scan_blocks(t, i32)
+        return kscan.add_offsets(scans, ref.tile_offsets(totals), i32)
+
     rb, rf = bound(8 * n, n, int_rate)
-    rows["ops.scan int32"] = {
+    rows["scan pair int32, whole"] = {
         "case": "n=2^27 int32, both kernels + the tile offsets",
-        "max_abs_err": 0.0, "bound_ms": rb, "bound_by": rf, **whole,
+        "max_abs_err": 0.0, "bound_ms": rb, "bound_by": rf,
+        **card_times(pair_scan, lambda t: ref.scan(t, i32), cumsum,
+                     scan_sets, 3, 2),
+        "library_call": "torch.cumsum(x, 0, dtype=torch.int32)"}
+    rows["ops.scan int32"] = {
+        "case": "n=2^27 int32 [-100,100), one scan_lookback launch",
+        "max_abs_err": max_abs_err(ops.scan(x, acc=i32), ref.scan(x, i32)),
+        "bound_ms": rb, "bound_by": rf,
+        **card_times(lambda t: ops.scan(t, acc=i32),
+                     lambda t: ref.scan(t, i32), cumsum, scan_sets, 3, 2),
         "library_call": "torch.cumsum(x, 0, dtype=torch.int32)"}
     del scan_sets
     torch.cuda.empty_cache()
@@ -1824,7 +1947,7 @@ def main() -> int:
             f"-{max(regs, default=0)}, spill stores up to "
             f"{max(spills, default=0)} bytes")
     for src in ("flash_attention.cu", "decode_attention.cu", "va.cu",
-                "gemv.cu"):
+                "gemv.cu", "scan.cu"):
         for label, regs, spill, smem in ptxas_per_kernel(
                 _build.BUILD_LOG.get(src, "")):
             log(f"    {src} {label}: {regs} registers, {spill} bytes spill "
@@ -1874,7 +1997,7 @@ def main() -> int:
     log(f"phase 9: the 16 PrIM workloads on the card, 1 bank at REF_N "
         f"(NW at {NW_CARD_N}), then {MULTIBANK} banks")
     launches9, _ = prim_workloads(kernels)
-    int32_routes(ops, ref, int_rate)
+    int32_rows = int32_routes(ops, ref, int_rate)
 
     log("phase 10: the PrIM entry point, repro_torch.benchmarks.run "
         "prim_bench")
@@ -1883,18 +2006,20 @@ def main() -> int:
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
     launches["stream_ops"] = launches7["stream_ops"]
-    for name in prim_rows:
+    for name in (*prim_rows, "scan_lookback"):
         launches[name] = launches8[name]
     # the PrIM path's own count, beside (not added to) the phase above
     prim_path = {k: launches9[k] + launches10[k] for k in launches}
     log(f"  launches on the PrIM path (phases 9 and 10): {prim_path}")
     stream_rows.update(prim_rows)
+    stream_rows["scan_lookback"] = int32_rows["ops.scan int32"]
     for name in ("decode_attention", "flash_attention"):
         # the bf16 row at the main path's first shape
         stream_rows[name] = next(r for r in rows[name]
                                  if r["dtype"] == "bfloat16" and "ms" in r)
     source = {"stream_ops": "microbench", "scan_blocks": "scan",
-              "add_offsets": "scan", "ts_dists": "ts"}
+              "add_offsets": "scan", "scan_lookback": "scan",
+              "ts_dists": "ts"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:64",
                 "flash_attention": "src/repro/kernels/flash_attention.py:79",
                 "va": "src/repro/kernels/va.py:22",
@@ -1903,6 +2028,8 @@ def main() -> int:
                 "gemv": "src/repro/kernels/gemv.py:32",
                 "scan_blocks": "src/repro/kernels/scan_block.py:33",
                 "add_offsets": "src/repro/kernels/scan_block.py:56",
+                # the pair composed as repro.kernels.ops.scan
+                "scan_lookback": "src/repro/kernels/scan_block.py:33",
                 "histogram": "src/repro/kernels/histogram.py:36",
                 "ts_dists": "src/repro/kernels/ts.py:30",
                 "transpose": "src/repro/kernels/trns.py:21"}

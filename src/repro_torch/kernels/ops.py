@@ -12,9 +12,10 @@ bank-local kernels behind `scan`, `histogram`, `ts_min` and `transpose`.
 `gemv`, `reduction` and the scan entry points take `acc`: f32 (the
 default, the Pallas kernels' contract) or int32, the int32 route, for
 int32 data: int32 out, every add and multiply wrapping at 2^32, which is
-what the reference's PrIM workloads compute with x64 off. `scan_blocks`,
-`tile_offsets` and `add_offsets` expose SCAN's steps for `repro_torch.prim`,
-which puts the exchange between the banks between them.
+what the reference's PrIM workloads compute with x64 off. `scan` on the
+int32 route and `scan_add` (the scan plus one offset) are one pass of the
+single-pass kernel; `scan_blocks`, `tile_offsets` and `add_offsets`
+expose the pair's steps.
 """
 
 from __future__ import annotations
@@ -164,17 +165,33 @@ def stream_ops(x, ops_per_elem: int):
 
 
 def scan(x, acc=torch.float32):
-    """Inclusive prefix sum of an (n,) int32 or f32 array through SCAN-SSA's
-    phases (f32 inside, result in x's dtype, int32 truncated; acc int32:
-    int32 inside, wrapping): the `scan_blocks` kernel, a fixed-order scan
-    of the tile totals on the same device (`tile_offsets`), the
-    `add_offsets` kernel."""
+    """Inclusive prefix sum of an (n,) int32 or f32 array. f32 accumulator
+    (result in x's dtype, int32 truncated): SCAN-SSA's phases, the
+    `scan_blocks` kernel, a fixed-order scan of the tile totals on the same
+    device (`tile_offsets`), the `add_offsets` kernel; the f32 sums then
+    have the same bits on every launch, which a look-back across tiles in
+    the order the tiles finish would not give. acc int32 (int32 x, every
+    add wrapping at 2^32, so any order gives the same bits): one launch of
+    the single-pass `scan_lookback` kernel."""
     _check_vector("scan", tuple(_scan.DTYPE_CODE), x)
     _check_acc("scan", acc, x)
     if x.device.type == "cpu":
         return ref.scan(x, acc)
+    if acc == torch.int32:
+        return _scan.scan_lookback(x)
     scans, totals = _scan.scan_blocks(x, acc)
     return _scan.add_offsets(scans, tile_offsets(totals), x.dtype)
+
+
+def scan_add(x, carry=None):
+    """carry + the inclusive prefix sum of an (n,) int32 array, every add
+    wrapping at 2^32: SCAN-RSS's bank-local pass, the reference's
+    `jnp.cumsum(xb) + ob[0]`. carry: one int32 element on x's device, or
+    None for 0. One launch of the single-pass `scan_lookback` kernel."""
+    _scan.check_lookback(x, carry)
+    if x.device.type == "cpu":
+        return ref.scan_add(x, carry)
+    return _scan.scan_lookback(x, carry)
 
 
 def scan_blocks(x, acc=torch.float32):
@@ -221,13 +238,17 @@ def histogram(x, bins: int):
 
 def ts_min(series, query):
     """(min squared distance, its window) of query (m,) over the windows of
-    series (n,), each int32 or f32, 1 <= m <= min(n, 512): a 0-dim f32
-    and the first index of the minimum as a 0-dim int32."""
+    series (n,), each int32 or f32, n >= 1 and 1 <= m <= 512: a 0-dim f32
+    and the first index of the minimum as a 0-dim int32. For m > n there is
+    no window: (inf, 0), as the reference, with nothing launched."""
     _check_vector("ts_min", tuple(_ts.DTYPE_CODE), series, query)
     n, m = series.numel(), query.numel()
-    if not 1 <= m <= min(n, _ts.MAX_M):
-        raise ValueError(f"ts_min: want 1 <= m <= min(n, {_ts.MAX_M}), got "
-                         f"n {n}, m {m}")
+    if n < 1 or not 1 <= m <= _ts.MAX_M:
+        raise ValueError(f"ts_min: want n >= 1 and 1 <= m <= {_ts.MAX_M}, "
+                         f"got n {n}, m {m}")
+    if m > n:
+        return (torch.full((), float("inf"), device=series.device),
+                torch.zeros((), dtype=torch.int32, device=series.device))
     if series.device.type == "cpu":
         d = ref.ts_dists(series, query)
     else:
@@ -253,5 +274,6 @@ def kernels():
             "va": _va.KERNEL, "reduction": _red.KERNEL,
             "stream_ops": _mb.KERNEL, "gemv": _gemv.KERNEL,
             "scan_blocks": _scan.SCAN_BLOCKS,
-            "add_offsets": _scan.ADD_OFFSETS, "histogram": _hst.KERNEL,
+            "add_offsets": _scan.ADD_OFFSETS,
+            "scan_lookback": _scan.LOOKBACK, "histogram": _hst.KERNEL,
             "ts_dists": _ts.KERNEL, "transpose": _trns.KERNEL}

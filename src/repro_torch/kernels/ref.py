@@ -168,6 +168,14 @@ def scan(x, acc=torch.float32):
     return add_offsets(scans, tile_offsets(totals), x.dtype)
 
 
+def scan_add(x, carry=None):
+    """The single-pass int32 scan's plain version: the int32 scan of
+    `scan` plus `carry` (one int32 element, or none), every add wrapping
+    at 2^32, so that any order of the adds gives these bits."""
+    y = scan(x, torch.int32)
+    return y if carry is None else y + carry.reshape(1)
+
+
 def histogram(x, bins: int):
     """int32 counts of (n,) uint32 values (int32 read as the same bits)
     over `bins` buckets, bucket (x * bins) >> 12 in uint32 arithmetic

@@ -5,9 +5,9 @@ handshake+barrier, inter-DPU communication.
 Phases (RSS trades a second streaming pass for not re-writing the scan):
   1. bank-local reduce (totals only): the reduction kernel's int32 route
   2. exchange: exclusive scan of per-bank totals (host)
-  3. bank-local full scan + offset: the scan_blocks and add_offsets
-     kernels' int32 routes, the bank's offset added to every tile's (two
-     passes where the reference's XLA fuses one)"""
+  3. bank-local full scan + offset in one pass, as the reference's: one
+     launch of the single-pass scan_lookback kernel a bank, with the bank's
+     offset as its carry, read on the card"""
 
 from __future__ import annotations
 
@@ -36,18 +36,17 @@ def run_pim(grid: BankGrid, x):
         lambda xb: ops.reduction(xb, acc=torch.int32)[None])(x)
     # phase 2: exclusive scan of totals (host)
     offsets = grid.exchange_scan_sums(totals)
-    # phase 3: local scan + add
-    def local_scan_add(xb, ob):
-        scans, tt = ops.scan_blocks(xb, acc=torch.int32)
-        return ops.add_offsets(scans, ops.tile_offsets(tt) + ob, torch.int32)
-    return grid.local(local_scan_add)(x, offsets)
+    # phase 3: local scan + add in a single pass
+    return grid.local(ops.scan_add)(x, offsets)
 
 
 def counts(n: int) -> WorkloadCounts:
     return WorkloadCounts(
         name="SCAN-RSS",
         ops={("add", "int64"): 2.0 * n},    # reduce + scan
-        bytes_streamed=8.0 * 3 * n,          # reduce pass + scan pass + write
+        # modelled UPMEM traffic (the reference's counts): reduce pass +
+        # scan pass + write
+        bytes_streamed=8.0 * 3 * n,
         interbank_bytes=8.0 * 64,
         flops_equiv=2.0 * n,
         pim_suitable=SUITABLE,

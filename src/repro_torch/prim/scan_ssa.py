@@ -4,11 +4,11 @@ inter-DPU communication.
 
 Phases (the PrIM SSA structure):
   1. bank-local inclusive scan of the bank's block: one launch of the
-     scan_blocks kernel's int32 route (each 8192-element tile scanned, with
-     its total), the fixed-order scan of the tile totals, the bank total
+     single-pass scan_lookback kernel a bank; the bank total is the scan's
+     last element
   2. exchange: exclusive scan of the per-bank totals (through the host)
-  3. bank-local add of the incoming offset: one launch of add_offsets
-     (each tile's offset within the bank plus the bank's offset)"""
+  3. bank-local add of the incoming offset: one launch of add_offsets's
+     int32 route a bank, the bank's offset on every tile"""
 
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from ..core.bank_parallel import BANKS, BankGrid
 from ..core.perf_model import WorkloadCounts
 from ..kernels import ops
+from ..kernels.ref import SCAN_TILE
 from .common import randint
 
 SUITABLE = True
@@ -32,27 +33,28 @@ def ref(x):
 
 
 def run_pim(grid: BankGrid, x):
-    # phase 1: local inclusive scan per tile (+ the tiles' offsets within
-    # the bank and the bank total)
+    # phase 1: local inclusive scan (+ the bank total)
     def local_scan(xb):
-        scans, totals = ops.scan_blocks(xb, acc=torch.int32)
-        offs = ops.tile_offsets(totals)
-        return scans, offs, offs[-1:] + totals[-1:]
-    scanned, offs, totals = grid.local(
-        local_scan, out_specs=(BANKS,) * 3)(x)
+        s = ops.scan(xb, acc=torch.int32)
+        return s, s[-1:]
+    scanned, totals = grid.local(local_scan, out_specs=(BANKS,) * 2)(x)
     # phase 2: exclusive scan of bank totals (host)
     offsets = grid.exchange_scan_sums(totals)
-    # phase 3: local add
-    def local_add(sb, tb, ob):
-        return ops.add_offsets(sb, tb + ob, torch.int32)
-    return grid.local(local_add)(scanned, offs, offsets)
+    # phase 3: local add, the bank's offset on each of its tiles
+    def local_add(sb, ob):
+        tiles = -(-sb.numel() // SCAN_TILE)
+        return ops.add_offsets(sb, ob.expand(tiles).contiguous(),
+                               torch.int32)
+    return grid.local(local_add)(scanned, offsets)
 
 
 def counts(n: int) -> WorkloadCounts:
     return WorkloadCounts(
         name="SCAN-SSA",
         ops={("add", "int64"): 2.0 * n},    # scan + offset add
-        bytes_streamed=8.0 * 3 * n,          # read, write scan, rewrite add
+        # modelled UPMEM traffic (the reference's counts): read, write
+        # scan, rewrite add
+        bytes_streamed=8.0 * 3 * n,
         interbank_bytes=8.0 * 64,
         flops_equiv=2.0 * n,
         pim_suitable=SUITABLE,

@@ -238,6 +238,26 @@ def test_ts_one_window(n):
     assert int(i) == int(ij) == 0
 
 
+@pytest.mark.parametrize("n,m", [(16, 32), (1, 2), (8, 9), (100, 512)])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_ts_min_query_longer_than_series(n, m, dtype):
+    """m > n: no window, so (inf, 0) as the reference's ts_min gives, as a
+    0-dim f32 and a 0-dim int32; m > 512 and n = 0 still raise, as the
+    reference asserts m <= BLOCK and has no argmin of nothing."""
+    rng = np.random.default_rng(n * m)
+    (sj, st), (qj, qt) = (_ints(rng, k, -100, 100, dtype) for k in (n, m))
+    d, i = ops.ts_min(st, qt)
+    dj, ij = jops.ts_min(sj, qj, interpret=True)
+    assert d.dtype == torch.float32 and i.dtype == torch.int32
+    assert d.dim() == 0 and i.dim() == 0
+    assert float(d) == float(dj) == float("inf")
+    assert int(i) == int(ij) == 0
+    with pytest.raises(ValueError):
+        ops.ts_min(st, torch.zeros(kts.MAX_M + 1, dtype=st.dtype))
+    with pytest.raises(ValueError):
+        ops.ts_min(st[:0], qt)
+
+
 def test_ts_float_sums_each_step_in_order():
     """f32 data: the plain version adds d*d window by window in j order,
     rounding the product and the sum separately, as the Pallas body."""
@@ -281,7 +301,6 @@ def test_prim_wrappers_reject_bad_arguments():
         lambda: ops.histogram(u32, khst.MAX_BINS + 1),
         lambda: ops.histogram(u32, 16.0),
         lambda: ops.histogram(u32, True),
-        lambda: ops.ts_min(i32, torch.zeros(9, dtype=torch.int32)),  # m > n
         lambda: ops.ts_min(torch.zeros(600, dtype=torch.int32),
                            torch.zeros(513, dtype=torch.int32)),      # m
         lambda: ops.ts_min(i32, torch.zeros(0, dtype=torch.int32)),

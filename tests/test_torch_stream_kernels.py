@@ -198,5 +198,6 @@ def test_stream_cuda_wrappers_refuse_cpu_tensors():
         assert mod.KERNEL.launches == 0
     assert set(ops.kernels()) == {"decode_attention", "flash_attention",
                                   "va", "reduction", "stream_ops", "gemv",
-                                  "scan_blocks", "add_offsets", "histogram",
-                                  "ts_dists", "transpose"}
+                                  "scan_blocks", "add_offsets",
+                                  "scan_lookback", "histogram", "ts_dists",
+                                  "transpose"}
