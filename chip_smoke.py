@@ -124,12 +124,51 @@ Phases, each of which raises (exit code != 0) on failure:
    prim_bench` (its `main`, in process) on the card: it must pass, its
    launches must be Table I's (one bank each), and the four Fig. 4 anchors
    of the model must equal the reference's model numbers (FIG4_ANCHORS).
+11. MoE on the card, qwen2-moe-a2.7b (60 routed experts top-4, 4 shared
+   behind a sigmoid gate). (a) Full width, 2 layers, f32: a MOE_PROMPT-
+   token prefill and 8 greedy decode steps through the kernels and through
+   the plain versions: greedy tokens identical, the kernels' logits no
+   further from an f64 run of the plain path (teacher-forced) than the
+   plain f32 path's (P1's form); the expert choices that differ between
+   the runs are counted and logged. The same prefill with int8 experts
+   (quantized in the forward): its first-token logits must differ from
+   the f32 ones, by less than 0.05 of their scale (tests/test_quant.py's
+   gate), and, against the same int8 and f32 prefills run on the CPU on
+   the same weights, must lie at most INT8_CPU_SHARE as far from the CPU's
+   int8 logits as int8 moves the CPU's logits. (b) On layer 0's real
+   prefill and
+   decode dispatch buffers of that run: `quantize_q8` on the card
+   bit-identical to the CPU's on the layer's experts, and the int8 expert
+   FFN's three contractions (torch._int_mm, one per expert, int32
+   accumulators) bit-exact to an int64 contraction of the same int8
+   operands on the CPU; shapes outside torch._int_mm's limits raise. (c)
+   Full width and depth (24 layers), bf16, phase 5's workload served
+   twice, with bf16 experts and with quant="int8" (experts quantized once
+   by the engine): exactly 24 decode-attention launches a decode step and
+   24 flash launches an admission, every prefill on the tensor-core route,
+   no other kernel; the expert contractions counted on their route (bf16:
+   3 batched float products a layer and forward, none int8; int8: 3 x 60
+   torch._int_mm a layer and forward, none float). TTFT, ms/step, weight
+   bytes and peak memory of both serves; the int8 serve's first-token
+   logits against the bf16 serve's and the share of identical greedy
+   tokens are logged.
+12. Sliding window on the card. REDUCED starcoder2-7b and mixtral-8x7b,
+   f32, max_len 32 (a ring of 16): the 16-step wrapping schedule of
+   tests/test_serve.py through the kernels and through the plain versions
+   gives the same tokens, with the attention launches of the path. Then
+   starcoder2-7b at full width, bf16: one SWA_PROMPT-token prompt (past
+   its 4096 window) and 16 decode steps at max_len SWA_MAX_LEN (a 4096
+   ring), every attention call held to the plain version in bf16 and f64
+   in P5's scale-relative form (as phase 4's bf16 run), every prefill on
+   the tensor-core route.
 
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
 for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
-kernels, scan_lookback included) and its `prim_launches` those of phases 9
-and 10 together. The
+kernels, scan_lookback included), its `prim_launches` those of phases 9
+and 10 together, and its `moe_swa_launches` those of the counted runs of
+phases 11 and 12 (the two qwen2-moe serves, the kernel runs of the
+wrapping schedules and starcoder2-7b's full-width run). The
 last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -234,6 +273,19 @@ FIG4_ANCHORS = {"avg_speedup_2556_vs_cpu": 24.055134942052366,
                 "avg_speedup_2556_vs_gpu_suitable": 2.548827864194352,
                 "avg_energy_eff_640_vs_cpu": 1.519332134320881}
 FIG4_REL = 1e-12
+# phase 11: the 2-layer f32 check's prompt; phase 12: starcoder2-7b's
+# prompt, past its 4096-token window, and the cache length (a 4096 ring)
+MOE_PROMPT = 300
+# phase 11 (a): int8 experts move the 2-layer first-token logits by ~4e-4
+# of their scale (measured on the H100); the card's int8 logits must lie
+# no further than this share of that from the CPU's int8 logits on the
+# same weights. The integers are the same on both (the contractions are
+# exact, quantization bit-identical); what differs is f32 rounding outside
+# them and the rare re-quantized element it moves by one step.
+INT8_CPU_SHARE = 0.5
+INT8_LOGIT_GATE = 0.05      # tests/test_quant.py: 0 < |int8 - f32| < 0.05
+SWA_PROMPT = 4200
+SWA_MAX_LEN = 4608
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -753,17 +805,19 @@ def full_width_bf16_check(ops, ref):
 # phase 5: the main path
 # --------------------------------------------------------------------- #
 
-def serve_workload():
-    """Phase 5's workload: granite-3-8b at full width and depth, random
-    weights from SEED, a ServeEngine of 4 slots x 2048 tokens, and 8 seeded
-    requests with prompts of 64-1500 tokens and 32 new tokens each.
+def serve_workload(arch: str = "granite-3-8b"):
+    """Phase 5's workload: `arch` (granite-3-8b; phase 11 serves
+    qwen2-moe-a2.7b) at full width and depth, random weights from SEED,
+    a ServeEngine of 4 slots x 2048 tokens, and 8 seeded requests with
+    prompts of 64-1500 tokens and 32 new tokens each.
     Returns (cfg, params, engine, requests)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_arch("granite-3-8b")
-    assert cfg.n_layers == SERVE_LAYERS
+    cfg = get_arch(arch)
+    if arch == "granite-3-8b":
+        assert cfg.n_layers == SERVE_LAYERS
     params = init_params(SEED, cfg, "cuda")
     engine = ServeEngine(cfg, params, batch_slots=4, max_len=2048,
                          seed=SEED, device="cuda")
@@ -1918,6 +1972,403 @@ def prim_entry_point(kernels):
 
 
 
+# --------------------------------------------------------------------- #
+# phase 11: MoE on the card (qwen2-moe-a2.7b)
+# --------------------------------------------------------------------- #
+
+@contextmanager
+def recorded_dispatch(record):
+    """Record every MoE dispatch of the model: its expert ids (`topi`) and
+    dispatch buffer, in call order."""
+    from repro_torch.models import layers as L
+    saved = L.moe_dispatch
+
+    def fn(x, router, cfg):
+        out = saved(x, router, cfg)
+        record.append((out[1], out[0]))
+        return out
+    L.moe_dispatch = fn
+    try:
+        yield
+    finally:
+        L.moe_dispatch = saved
+
+
+def differing_choices(a, b) -> tuple[int, int]:
+    """(token-slot expert choices that differ, all choices) between two
+    runs' recorded dispatches, the top-k sets compared per token."""
+    diff = total = 0
+    for (ta, _), (tb, _) in zip(a, b, strict=True):
+        sa, sb = ta.sort(-1).values, tb.sort(-1).values
+        diff += int((sa != sb).sum())
+        total += sa.numel()
+    return diff, total
+
+
+def cpu_last_logits(cfg, params, prompt, max_len):
+    """The prefill of `prompt` on the CPU: the last token's logits, f64."""
+    from repro_torch.models import forward, init_cache
+    cache = init_cache(cfg, 1, max_len, "cpu")
+    logits, _, _ = forward(params, cfg, tokens=prompt, cache=cache)
+    return logits[0, -1, :cfg.vocab_size].double()
+
+
+def moe_full_width_check(ops, ref):
+    """Phase 11 (a) and (b). qwen2-moe-a2.7b at full width, 2 layers, f32:
+    MOE_PROMPT-token prefill + 8 greedy decode steps through the kernels and
+    through the plain versions (greedy tokens identical; logits no further
+    from an f64 run of the plain path, teacher-forced on the kernels'
+    tokens, than the plain f32 path's: P1's form; differing expert choices
+    logged). The int8 prefill's first-token logits held to
+    INT8_LOGIT_GATE against f32 and to INT8_CPU_SHARE against the CPU's
+    int8 prefill. Then the int8 route on layer 0's real prefill and decode
+    dispatch buffers of that run: quantize_q8 on the card bit-identical to
+    the CPU's on the layer's experts, and every contraction of the int8
+    expert FFN (up, gate, down) bit-exact to an int64 contraction of the
+    same int8 operands on the CPU; shapes outside torch._int_mm's limits
+    must raise."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, tree_map
+    from repro_torch.models import layers as L
+
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b"), n_layers=2,
+                              dtype="float32")
+    params = init_params(SEED, cfg, "cuda")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    prompt = torch.randint(0, cfg.vocab_size, (1, MOE_PROMPT), generator=gen)
+    prompt = prompt.to("cuda")
+    rec_k, rec_p, rec_64 = [], [], []
+    with torch.no_grad():
+        with recorded_dispatch(rec_k):
+            toks_k, lg_k = greedy_run(cfg, params, prompt, 512)
+        with plain_attention(ops, ref):
+            with recorded_dispatch(rec_p):
+                toks_p, lg_p = greedy_run(cfg, params, prompt, 512)
+            p64 = tree_map(lambda t: t.double(), params)
+            with recorded_dispatch(rec_64):
+                _, lg_64 = greedy_run(dataclasses.replace(cfg,
+                                                          dtype="float64"),
+                                      p64, prompt, 512, forced=toks_k)
+            del p64
+        # int8 experts (quantized in the forward) on the same weights, on
+        # the card and on the CPU
+        cfg8 = dataclasses.replace(cfg, quant="int8")
+        _, lg_8 = greedy_run(cfg8, params, prompt, 512, steps=0)
+        t0 = time.perf_counter()
+        on_cpu = tree_map(lambda t: t.cpu(), params)
+        c8, c32 = (cpu_last_logits(c, on_cpu, prompt.cpu(), 512)
+                   for c in (cfg8, cfg))
+        del on_cpu
+        cpu_s = time.perf_counter() - t0
+    err_k, err_p = rel(lg_k, lg_64), rel(lg_p, lg_64)
+    n_calls = cfg.n_layers * 9
+    if not len(rec_k) == len(rec_p) == len(rec_64) == n_calls:
+        raise AssertionError(f"MoE f32: {len(rec_k)} dispatches, want "
+                             f"{n_calls}")
+    dk, total = differing_choices(rec_k, rec_p)
+    d64, _ = differing_choices(rec_k, rec_64)
+    prefill_buf = rec_k[0][1]
+    decode_buf = rec_k[cfg.n_layers][1]         # decode step 1, layer 0
+    drops = int((rec_k[0][1].abs().sum(-1) == 0).sum())
+    del rec_k, rec_p, rec_64
+    log(f"  tokens kernels {toks_k}")
+    log(f"  tokens plain   {toks_p}")
+    log(f"  logits max rel diff: kernels vs plain {rel(lg_k, lg_p):.3g}; "
+        f"vs f64: kernels {err_k:.3g}, plain {err_p:.3g} "
+        f"(limit {LOGIT_F64_FACTOR} x plain)")
+    log(f"  expert choices differing from the plain path's: {dk} of {total}"
+        f" (token x top-{cfg.top_k} x layer x forward); from the f64 run's:"
+        f" {d64}; empty capacity slots in layer 0's prefill buffer "
+        f"{tuple(prefill_buf.shape)}: {drops}")
+    d8, d8_cpu = rel(lg_8[0], lg_k[0]), rel(c8, c32)
+    d_dev = rel(lg_8[0].cpu(), c8)
+    log(f"  int8 experts, first-token logits max rel diff: card int8 vs "
+        f"card f32 {d8:.4g} (gate 0 < d < {INT8_LOGIT_GATE}); CPU int8 vs "
+        f"CPU f32 {d8_cpu:.4g}; card int8 vs CPU int8 {d_dev:.4g} (limit "
+        f"{INT8_CPU_SHARE} x {d8_cpu:.4g}); card f32 vs CPU f32 "
+        f"{rel(lg_k[0].cpu(), c32):.4g}; argmax {int(lg_8[0].argmax())} / "
+        f"{int(lg_k[0].argmax())}; CPU prefills {cpu_s:.1f}s")
+    if not (torch.isfinite(lg_8).all() and 0 < d8 < INT8_LOGIT_GATE):
+        raise AssertionError(f"MoE int8: first-token logits {d8:.3g} of "
+                             f"their scale from f32, want (0, "
+                             f"{INT8_LOGIT_GATE})")
+    if not d_dev <= INT8_CPU_SHARE * d8_cpu:
+        raise AssertionError(f"MoE int8: the card's logits are {d_dev:.3g} "
+                             f"from the CPU's int8 run, int8 moves the CPU's "
+                             f"by {d8_cpu:.3g}")
+    if toks_k != toks_p:
+        raise AssertionError("MoE f32: kernel and plain paths chose "
+                             "different tokens")
+    if not (torch.isfinite(lg_k).all() and err_k <= LOGIT_F64_FACTOR * err_p):
+        raise AssertionError(f"MoE f32: kernel logits are {err_k:.3g} from "
+                             f"f64, the plain path's {err_p:.3g}")
+
+    # (b) the int8 route on layer 0's experts and real buffers
+    layer0 = tree_map(lambda t: t[0], params["layers"][0]["mlp"])
+    del params
+    q8 = L.quantize_experts(layer0)
+    for name, (q, scale) in q8.items():
+        q_cpu, s_cpu = L.quantize_q8(layer0[name].cpu())
+        if not (torch.equal(q.cpu(), q_cpu) and torch.equal(scale.cpu(),
+                                                            s_cpu)):
+            raise AssertionError(f"quantize_q8 of {name}: the card's "
+                                 f"(q, scale) differ from the CPU's")
+    log(f"  quantize_q8 on the card == on the CPU, bit for bit: "
+        f"{sorted(q8)} {tuple(q8['wu'][0].shape)}")
+    act = L._act_fn(cfg)
+    for what, buf in (("prefill", prefill_buf), ("decode", decode_buf)):
+        xq, sx = L._quantize_rows(buf.float())
+        L.EXPERT_MM.reset()
+        accs = {}
+        for name, lhs in (("wu", xq), ("wg", xq), ("wd", None)):
+            if lhs is None:
+                up = accs["wu"].float() * sx * q8["wu"][1][None, :, 0, None]
+                gate = accs["wg"].float() * sx * q8["wg"][1][None, :, 0, None]
+                lhs, _ = L._quantize_rows(act(gate) * up)
+            got = L.int8_expert_matmul(lhs, q8[name][0])
+            want = torch.einsum("becd,edf->becf", lhs.cpu().long(),
+                                q8[name][0].cpu().long())
+            if not torch.equal(got.cpu().long(), want):
+                raise AssertionError(f"int8 route, {what} {name}: int32 "
+                                     f"accumulators differ from int64")
+            accs[name] = got
+        torch.cuda.synchronize()
+        e = cfg.n_experts
+        if dict(L.EXPERT_MM.route_launches) != {"int8": 3 * e}:
+            raise AssertionError(f"int8 route: launches "
+                                 f"{dict(L.EXPERT_MM.route_launches)}")
+        log(f"  int8 route, layer 0 {what} buffer {tuple(buf.shape)}: up, "
+            f"gate and down bit-exact to int64 ({3 * e} torch._int_mm "
+            f"launches, rows padded to >= {L.INT_MM_MIN_ROWS}; max |acc| "
+            f"{max(int(a.abs().max()) for a in accs.values())})")
+    for bad in ((1, 2, 3, 2044), (1, 2, 3, 16)):
+        x = torch.zeros(bad, dtype=torch.int8, device="cuda")
+        w = torch.zeros((2, bad[3], 12), dtype=torch.int8, device="cuda")
+        try:
+            L.int8_expert_matmul(x, w)
+        except ValueError as err:
+            log(f"  outside torch._int_mm's limits it raises: {err}")
+        else:
+            raise AssertionError(f"int8 route ran at K={bad[3]}, N=12")
+
+
+def moe_serve(kernels):
+    """Phase 11 (c): qwen2-moe-a2.7b at full width and depth, bf16, on
+    phase 5's workload, served once with bf16 experts and once with
+    quant="int8" (the engine quantizes the experts once). Returns the
+    attention launches of both serves."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import forward, init_cache, tree_map
+    from repro_torch.models import layers as L
+    from repro_torch.serve import Request, ServeEngine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, params, engine, reqs = serve_workload("qwen2-moe-a2.7b")
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    log(f"  init_params and engine {time.perf_counter() - t0:.2f}s: "
+        f"{sum(t.numel() for t in leaves)} parameters, {weight_bytes} bytes,"
+        f" max_memory_allocated {torch.cuda.max_memory_allocated()}")
+    total = {name: 0 for name in kernels}
+    runs = {}
+    for quant in ("", "int8"):
+        label = quant or "bf16"
+        if quant:
+            del engine
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engine = ServeEngine(dataclasses.replace(cfg, quant=quant),
+                                 params, batch_slots=4, max_len=2048,
+                                 seed=SEED, device="cuda")
+            torch.cuda.synchronize()
+            q8 = []
+            for lp in engine.params["layers"]:
+                tree_map(q8.append, lp["mlp"]["q8"])
+            log(f"  int8 engine: experts quantized once in "
+                f"{time.perf_counter() - t0:.2f}s, "
+                f"{sum(t.numel() * t.element_size() for t in q8)} bytes of "
+                f"int8 weights and scales beside the bf16 weights")
+            reqs = [Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs]
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.reset()
+        L.EXPERT_MM.reset()
+        done, metrics = serve(engine, reqs)
+        launches = {name: k.launches for name, k in kernels.items()}
+        routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
+        mm = dict(L.EXPERT_MM.route_launches)
+        peak = torch.cuda.max_memory_allocated()
+        n_fwd = engine.n_decode_steps + engine.n_prefills
+        if len(done) != len(reqs) or any(
+                len(r.out_tokens) != r.max_new_tokens
+                or not all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+                for r in done):
+            raise AssertionError(f"qwen2-moe {label}: requests unfinished "
+                                 f"or vocab-padding tokens")
+        want = {name: 0 for name in kernels}
+        want.update(decode_attention=cfg.n_layers * engine.n_decode_steps,
+                    flash_attention=cfg.n_layers * engine.n_prefills)
+        want_mm = ({"int8": 3 * cfg.n_experts * cfg.n_layers * n_fwd}
+                   if quant else {"float": 3 * cfg.n_layers * n_fwd})
+        log(f"  {label}: launches {launches}, expected {want} "
+            f"({engine.n_decode_steps} decode steps, {engine.n_prefills} "
+            f"admissions); flash routes {routes}; expert contractions "
+            f"{mm}, expected {want_mm}")
+        if launches != want or engine.n_prefills != len(reqs):
+            raise AssertionError(f"qwen2-moe {label}: launch counts do not "
+                                 f"match the path")
+        if routes != {"tensor_core": want["flash_attention"],
+                      "cuda_core": 0}:
+            raise AssertionError(f"qwen2-moe {label}: a prefill left the "
+                                 f"tensor-core route")
+        if mm != want_mm:
+            raise AssertionError(f"qwen2-moe {label}: expert contractions "
+                                 f"{mm}, want {want_mm}")
+        for name in total:
+            total[name] += launches[name]
+        for r, ttft, toks in zip(done, metrics["ttft_ms"], metrics["tokens"]):
+            log(f"  {label} req {r.rid}: prompt {len(r.prompt)}, TTFT "
+                f"{ttft:.1f} ms, tokens {toks}...")
+        log(f"  {label}: serve wall {metrics['wall_s']:.3f}s; prefill "
+            f"{engine.prefill_s:.3f}s over {engine.n_prefills} admissions "
+            f"({metrics['prefill_ms']:.1f} ms each); decode "
+            f"{metrics['decode_ms_per_step']:.2f} ms/step over "
+            f"{engine.n_decode_steps} steps, "
+            f"{metrics['decode_tokens_per_s']:.1f} decode tokens/s; weight "
+            f"bytes {weight_bytes}; max_memory_allocated {peak}")
+        # the first request's first-token logits on this engine's weights
+        with torch.no_grad():
+            one = init_cache(engine.cfg, 1, 2048, "cuda")
+            logits, _, _ = forward(engine.params, engine.cfg,
+                                   tokens=reqs[0].prompt[None].cuda(),
+                                   cache=one)
+        runs[label] = ({r.rid: r.out_tokens for r in done},
+                       logits[0, -1, :cfg.vocab_size].float())
+    (tb, lb), (t8, l8) = runs["bf16"], runs["int8"]
+    same = sum(a == b for rid in tb for a, b in zip(tb[rid], t8[rid]))
+    n = sum(len(t) for t in tb.values())
+    log(f"  int8 against bf16: first-token logits of req 0 max |diff| "
+        f"{float((l8 - lb).abs().max()):.4g} (max |bf16 logit| "
+        f"{float(lb.abs().max()):.4g}), argmax {int(l8.argmax())} / "
+        f"{int(lb.argmax())}; identical greedy tokens {same} of {n} "
+        f"({same / n:.1%})")
+    del engine, params
+    return total
+
+
+# --------------------------------------------------------------------- #
+# phase 12: sliding window on the card
+# --------------------------------------------------------------------- #
+
+def wrapping_schedule(engine, prompts):
+    """tests/test_serve.py's windowed schedule: 16 continuous-batching
+    steps with budgets of 8 tokens; {rid: tokens}."""
+    from repro_torch.serve import Request
+    reqs = [Request(i, p, 8) for i, p in enumerate(prompts)]
+    pending = list(reqs)
+    for _ in range(16):
+        while pending and engine.admit(pending[0]):
+            pending.pop(0)
+        engine.step()
+    return {r.rid: list(r.out_tokens) for r in reqs}
+
+
+def window_checks(ops, ref, kernels):
+    """Phase 12. REDUCED starcoder2-7b and mixtral-8x7b, f32, max_len 32 (a
+    ring of 16): the 16-step wrapping schedule through the kernels and
+    through the plain versions gives the same tokens. Then starcoder2-7b
+    at full width, bf16: one SWA_PROMPT-token prompt (past its 4096
+    window) and 16 greedy decode steps at max_len SWA_MAX_LEN (a 4096
+    ring), every attention call held to the plain version in bf16 and f64
+    in P5's scale-relative form. Returns the kernel runs' launches."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import cache_width, init_params
+    from repro_torch.serve import ServeEngine
+
+    total = {name: 0 for name in kernels}
+    for arch in ("starcoder2-7b", "mixtral-8x7b"):
+        cfg = dataclasses.replace(get_arch(arch, reduced=True),
+                                  dtype="float32")
+        assert cache_width(cfg, 32) == 16
+        params = init_params(SEED, cfg, "cuda")
+        gen = torch.Generator().manual_seed(SEED + 5)
+        prompts = [torch.randint(0, cfg.vocab_size, (12 + i % 3,),
+                                 generator=gen) for i in range(4)]
+        out = {}
+        for path in ("kernels", "plain"):
+            eng = ServeEngine(cfg, params, batch_slots=2, max_len=32,
+                              seed=SEED, device="cuda")
+            for k in kernels.values():
+                k.reset()
+            if path == "kernels":
+                out[path] = wrapping_schedule(eng, prompts)
+                launches = {name: k.launches for name, k in kernels.items()}
+                want = {name: 0 for name in kernels}
+                want.update(
+                    decode_attention=cfg.n_layers * eng.n_decode_steps,
+                    flash_attention=cfg.n_layers * eng.n_prefills)
+                if launches != want:
+                    raise AssertionError(f"{cfg.name}: launches {launches}, "
+                                         f"want {want}")
+                for name in total:
+                    total[name] += launches[name]
+            else:
+                with plain_attention(ops, ref):
+                    out[path] = wrapping_schedule(eng, prompts)
+        wrapped = sum(len(p) + len(t) > 16
+                      for p, t in zip(prompts, out["kernels"].values()))
+        log(f"  {cfg.name}: {out['kernels']} ({wrapped} of 4 requests past "
+            f"the ring of 16)")
+        if out["kernels"] != out["plain"] or not wrapped:
+            raise AssertionError(f"{cfg.name}: kernel path {out['kernels']},"
+                                 f" plain path {out['plain']}")
+
+    cfg = get_arch("starcoder2-7b")
+    assert cache_width(cfg, SWA_MAX_LEN) == cfg.sliding_window < SWA_PROMPT
+    params = init_params(SEED, cfg, "cuda")
+    gen = torch.Generator().manual_seed(SEED + 6)
+    prompt = torch.randint(0, cfg.vocab_size, (1, SWA_PROMPT), generator=gen)
+    prompt = prompt.to("cuda")
+    worst = {}
+    for k in kernels.values():
+        k.reset()
+    with torch.no_grad(), checked_attention(ops, ref, worst):
+        toks, lg = greedy_run(cfg, params, prompt, SWA_MAX_LEN, steps=16)
+    launches = {name: k.launches for name, k in kernels.items()}
+    routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
+    del params
+    for name in total:
+        total[name] += launches[name]
+    log_worst(worst, f" (kernel-f64 limit: TOL or plain-f64 + {CALL_TOL})")
+    log(f"  starcoder2-7b full width, bf16, prompt {SWA_PROMPT}, ring "
+        f"{cfg.sliding_window}: tokens {toks}; launches {launches}, flash "
+        f"routes {routes}")
+    want = {name: 0 for name in kernels}
+    want.update(decode_attention=16 * cfg.n_layers,
+                flash_attention=cfg.n_layers)
+    if launches != want or routes != {"tensor_core": cfg.n_layers,
+                                      "cuda_core": 0}:
+        raise AssertionError(f"starcoder2-7b: launches {launches}, routes "
+                             f"{routes}, want {want} on tensor cores")
+    if sorted(worst) != ["decode_attention", "flash_attention"]:
+        raise AssertionError(f"starcoder2-7b: attention calls seen {worst}")
+    for name, w in worst.items():
+        limit = max(TOL[(name, torch.bfloat16)], w["plain-f64"] + CALL_TOL)
+        if not w["kernel-f64"] <= limit:
+            raise AssertionError(f"starcoder2-7b: {name} kernel is "
+                                 f"{w['kernel-f64']:.3g} of the output's "
+                                 f"scale from f64, the plain version "
+                                 f"{w['plain-f64']:.3g} (limit {limit:.3g})")
+    if not torch.isfinite(lg).all():
+        raise AssertionError("starcoder2-7b: logits not finite")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2002,6 +2453,21 @@ def main() -> int:
     log("phase 10: the PrIM entry point, repro_torch.benchmarks.run "
         "prim_bench")
     launches10 = prim_entry_point(kernels)
+    torch.cuda.empty_cache()
+
+    log(f"phase 11: qwen2-moe-a2.7b full width, 2 layers, f32, "
+        f"{MOE_PROMPT}-token prompt: kernels vs plain; the int8 route")
+    moe_full_width_check(ops, ref)
+    torch.cuda.empty_cache()
+    log("phase 11: qwen2-moe-a2.7b, 24 layers, bf16 and int8 experts, "
+        "ServeEngine")
+    launches11 = moe_serve(kernels)
+    torch.cuda.empty_cache()
+
+    log("phase 12: sliding window: REDUCED starcoder2-7b and mixtral-8x7b "
+        f"past the ring wrap; starcoder2-7b full width, {SWA_PROMPT}-token "
+        "prompt")
+    launches12 = window_checks(ops, ref, kernels)
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
@@ -2011,6 +2477,10 @@ def main() -> int:
     # the PrIM path's own count, beside (not added to) the phase above
     prim_path = {k: launches9[k] + launches10[k] for k in launches}
     log(f"  launches on the PrIM path (phases 9 and 10): {prim_path}")
+    # the MoE and sliding-window runs' own count, beside phase 5's
+    moe_swa = {k: launches11[k] + launches12[k] for k in launches}
+    log(f"  launches on the MoE and sliding-window paths (phases 11 and "
+        f"12): {moe_swa}")
     stream_rows.update(prim_rows)
     stream_rows["scan_lookback"] = int32_rows["ops.scan int32"]
     for name in ("decode_attention", "flash_attention"):
@@ -2042,6 +2512,7 @@ def main() -> int:
                       f"{source.get(name, name)}.cu",
             "replaces": replaces[name], "launches": launches[name],
             "prim_launches": prim_path[name],
+            "moe_swa_launches": moe_swa[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -9,11 +9,13 @@ in parallel, one `nvcc` each.
 
 `CudaKernel` is one C entry point: the wrapper passes tensors' data
 pointers and PyTorch's current stream, the C function returns
-`cudaGetLastError()`, and a non-zero code raises. `launches` counts the
-launches that went through, so a run can show its path used the kernel;
-`route_launches` counts them by the route label a wrapper gives: the
-accumulator of reduction and scan ("f32", "int32"), va's and flash's
-route, gemv's accumulator and route ("int32/ring"). `reset` zeroes both.
+`cudaGetLastError()`, and a non-zero code raises. Its `LaunchCounter`
+counts the launches that went through, so a run can show its path used
+the kernel: `launches` in all, `route_launches` by the route label a
+wrapper gives: the accumulator of reduction and scan ("f32", "int32"),
+va's and flash's route, gemv's accumulator and route ("int32/ring").
+`reset` zeroes both. A library routine the port calls on the card (the
+int8 expert contractions) is counted on a `LaunchCounter` of its own.
 `check_cuda` holds the preconditions every wrapper checks before a launch.
 """
 
@@ -113,20 +115,39 @@ def check_cuda(name: str, *tensors, contiguous: bool = True) -> None:
         raise ValueError(f"{name}: tensors must be contiguous")
 
 
-class CudaKernel:
-    """One C entry point `symbol` of `csrc/<stem>.cu` with its ctypes
-    argument types; built on the first launch."""
+class LaunchCounter:
+    """Launches, in all and by route label; `reset()` zeroes both."""
 
-    def __init__(self, stem: str, symbol: str, argtypes: list):
-        self.stem, self.symbol, self.argtypes = stem, symbol, argtypes
+    def __init__(self):
         self.launches = 0
         self.route_launches: collections.Counter = collections.Counter()
-        self._fn = None
 
     def reset(self) -> None:
         """Zero the launch counts."""
         self.launches = 0
         self.route_launches.clear()
+
+    def count(self, route: str | None = None, n: int = 1) -> None:
+        """Add `n` launches, under `route` if it is given."""
+        self.launches += n
+        if route is not None:
+            self.route_launches[route] += n
+
+    def route_count(self, part: str) -> int:
+        """Launches whose route label has `part` as one of its
+        "/"-separated parts ("ring" counts "f32/ring" and "int32/ring")."""
+        return sum(n for r, n in self.route_launches.items()
+                   if part in r.split("/"))
+
+
+class CudaKernel(LaunchCounter):
+    """One C entry point `symbol` of `csrc/<stem>.cu` with its ctypes
+    argument types; built on the first launch."""
+
+    def __init__(self, stem: str, symbol: str, argtypes: list):
+        super().__init__()
+        self.stem, self.symbol, self.argtypes = stem, symbol, argtypes
+        self._fn = None
 
     def launch(self, *args, route: str | None = None) -> None:
         if self._fn is None:
@@ -141,12 +162,4 @@ class CudaKernel:
             msg = library(self.stem).error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} failed to launch: CUDA error "
                                f"{rc} ({msg})")
-        self.launches += 1
-        if route is not None:
-            self.route_launches[route] += 1
-
-    def route_count(self, part: str) -> int:
-        """Launches whose route label has `part` as one of its
-        "/"-separated parts ("ring" counts "f32/ring" and "int32/ring")."""
-        return sum(n for r, n in self.route_launches.items()
-                   if part in r.split("/"))
+        self.count(route)

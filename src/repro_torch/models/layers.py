@@ -1,10 +1,13 @@
-"""Transformer building blocks, dense part: norms, RoPE, GQA attention
-projections, decode attention over the KV cache, and the dense MLP.
+"""Transformer building blocks: norms, RoPE, GQA attention projections,
+decode attention over the KV cache, the dense MLP and the routed MoE layer
+(capacity dispatch, expert FFN in float or int8, combine, shared experts).
 
 Counterpart of `repro.models.layers`. Weights are declared as `ParamDef`
 with the same shapes: q/k/v weights stay 3-D (d_model, heads, head_dim).
 Decode attention goes through `kernels.ops.decode_attention`, the CUDA
-kernel on the card and its plain version on the CPU.
+kernel on the card and its plain version on the CPU. The router and the
+expert contractions are plain products outside any kernel, as in the
+reference; the int8 contraction is exact (`int8_expert_matmul`).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..kernels._build import LaunchCounter
 from .config import ModelConfig
 from .sharding import ParamDef
 
@@ -141,8 +145,8 @@ def attn_out(o, p, x_dtype):
 # dense MLP
 # --------------------------------------------------------------------- #
 
-def mlp_defs(cfg: ModelConfig, name: str) -> dict:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_defs(cfg: ModelConfig, name: str, d_ff: int | None = None) -> dict:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     defs = {
         "wu": ParamDef((d, f), ("fsdp", "tp"), f"{name}.wu"),
         "wd": ParamDef((f, d), ("tp", "fsdp"), f"{name}.wd"),
@@ -166,3 +170,228 @@ def mlp_forward(x, p, cfg: ModelConfig):
     else:
         up = act(up)
     return up @ p["wd"].to(x.dtype)
+
+
+# --------------------------------------------------------------------- #
+# MoE (capacity-based dispatch, GShard-style, row-local positions)
+# --------------------------------------------------------------------- #
+
+CAPACITY_FACTOR = 1.25
+# torch._int_mm on CUDA (cuBLASLt int8 -> int32) takes more than 16 rows
+# and K and N multiples of 8
+INT_MM_MIN_ROWS = 17
+INT_MM_MULTIPLE = 8
+
+
+#: the expert contractions on the card: "int8" counts each torch._int_mm
+#: call (one per expert and projection), "float" each batched float
+#: product over all experts (one per projection); counted on CUDA tensors,
+#: never on the CPU path
+EXPERT_MM = LaunchCounter()
+
+
+def moe_defs(cfg: ModelConfig, name: str) -> dict:
+    d = cfg.d_model
+    e, fe = cfg.n_experts, cfg.moe_d_ff or cfg.d_ff
+    defs = {
+        "router": ParamDef((d, e), (None, None), f"{name}.router", "small"),
+        "wu": ParamDef((e, d, fe), ("experts", "fsdp", "tp"), f"{name}.e_wu"),
+        "wd": ParamDef((e, fe, d), ("experts", "tp", "fsdp"), f"{name}.e_wd"),
+    }
+    if cfg.gated_mlp:
+        defs["wg"] = ParamDef((e, d, fe), ("experts", "fsdp", "tp"),
+                              f"{name}.e_wg")
+    if cfg.n_shared_experts:
+        fs = cfg.shared_d_ff or cfg.n_shared_experts * fe
+        defs["shared"] = mlp_defs(cfg, f"{name}.shared", fs)
+        defs["shared_gate"] = ParamDef((d, 1), (None, None),
+                                       f"{name}.shared_gate", "small")
+    return defs
+
+
+def _router_dtype(x):
+    """The router's type: f32, as the reference computes it (f64 for an
+    f64 model, so that an f64 run is the f64 truth of the whole layer)."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def moe_dispatch(x, router, cfg: ModelConfig):
+    """Router + top-k gate + capacity scatter. Returns `(buf, topi, pos, w,
+    gates)`: the (B, E, C, D) dispatch buffer in x's dtype, each token's
+    expert ids, row-local capacity positions (>= C for a dropped token)
+    and normalized kept-gate weights (0 where dropped), and the gate
+    softmax (for the aux loss). Positions are cumsums within each batch
+    row, so a dead serving slot never takes a live row's capacity. Every
+    kept (b, e, pos) receives exactly one token and a dropped one adds
+    zeros at C - 1, so the accumulating scatter is exact in any order."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.top_k
+    cap = max(int(CAPACITY_FACTOR * k * s / e), 1)
+    rt = _router_dtype(x)
+    logits = x.to(rt) @ router.to(rt)
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(gates, k, dim=-1)              # (B,S,k)
+    topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
+
+    # row-local position of each (token, slot) inside its expert
+    onehot = F.one_hot(topi, e).to(torch.int32)            # (B,S,k,E)
+    pos = torch.cumsum(onehot.reshape(b, s * k, e), dim=1) - 1
+    pos = (pos.reshape(b, s, k, e) * onehot).sum(-1)       # (B,S,k)
+    keep = pos < cap
+    w = topw * keep.to(topw.dtype)
+
+    buf = torch.zeros((b, e, cap, d), dtype=x.dtype, device=x.device)
+    bidx = torch.arange(b, device=x.device)[:, None, None].expand(b, s, k)
+    src = torch.where(keep[..., None], x[:, :, None, :],
+                      torch.zeros((), dtype=x.dtype, device=x.device))
+    buf.index_put_((bidx, topi, torch.where(keep, pos, cap - 1)), src,
+                   accumulate=True)
+    return buf, topi, pos, w, gates
+
+
+def quantize_q8(w, axis: int = 1):
+    """Symmetric per-channel int8 weight quantization: one f32 scale per
+    output channel, reduced over the contraction `axis` (kept as a size-1
+    dim). The reference's arithmetic step by step (the reciprocal multiply
+    `amax * (1/127)`, round half to even), so `(q, scale)` are its bits;
+    elementwise ops and a max, so quantizing a stacked tensor once, or
+    each layer's slice in the forward, gives the same integers."""
+    wf = w.float()
+    amax = wf.abs().amax(dim=axis, keepdim=True)
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0), 1.0)
+    q = torch.clamp(torch.round(wf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _quantize_rows(x):
+    """Per-row symmetric int8 quantization over the trailing axis;
+    returns `(q, scale)` with scale keepdims."""
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax * (1.0 / 127.0), 1.0)
+    q = torch.clamp(torch.round(x / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def int8_expert_matmul(xq, wq):
+    """`einsum("becd,edf->becf")` of int8 activations xq (B, E, C, K) and
+    int8 weights wq (E, K, N), accumulated in int32: exact, since
+    |sum| <= 127^2 K < 2^31 for K < 133144 and integer sums do not depend
+    on their order. On the CPU an int32 einsum; on the card one
+    `torch._int_mm` (cuBLASLt, int8 in, int32 accumulator) per expert,
+    the B*C rows padded with zero rows to its minimum, whose results are
+    dropped. Shapes outside `_int_mm`'s limits raise: there is no float
+    route for int8 experts."""
+    if xq.dtype != torch.int8 or wq.dtype != torch.int8:
+        raise ValueError(f"int8_expert_matmul: want int8 operands, got "
+                         f"{xq.dtype}, {wq.dtype}")
+    b, e, c, k = xq.shape
+    n = wq.shape[-1]
+    if wq.shape != (e, k, n):
+        raise ValueError(f"int8_expert_matmul: activations {tuple(xq.shape)}"
+                         f" do not match weights {tuple(wq.shape)}")
+    if xq.device.type == "cpu":
+        return torch.einsum("becd,edf->becf", xq.to(torch.int32),
+                            wq.to(torch.int32))
+    if k % INT_MM_MULTIPLE or n % INT_MM_MULTIPLE:
+        raise ValueError(f"int8_expert_matmul: K = {k} and N = {n} must be "
+                         f"multiples of {INT_MM_MULTIPLE} (torch._int_mm)")
+    rows = b * c
+    m = max(rows, INT_MM_MIN_ROWS)
+    xe = xq.permute(1, 0, 2, 3).reshape(e, rows, k)
+    if m > rows:
+        xe = F.pad(xe, (0, 0, 0, m - rows))
+    out = torch.empty((e, m, n), dtype=torch.int32, device=xq.device)
+    for i in range(e):
+        torch._int_mm(xe[i], wq[i], out=out[i])
+    EXPERT_MM.count("int8", e)
+    return out[:, :rows].reshape(e, b, c, n).permute(1, 0, 2, 3)
+
+
+def _expert_mm(buf, w):
+    """Float `einsum("becd,edf->becf")`: one batched product over E."""
+    if buf.is_cuda:
+        EXPERT_MM.count("float")
+    return torch.einsum("becd,edf->becf", buf, w.to(buf.dtype))
+
+
+def quantize_experts(p) -> dict:
+    """`{name: quantize_q8(p[name])}` for the expert weights (E, K, N) of
+    one MoE layer's parameter dict."""
+    return {n: quantize_q8(p[n]) for n in ("wu", "wg", "wd") if n in p}
+
+
+def moe_expert_ffn_q8(buf, q8, cfg: ModelConfig):
+    """`moe_expert_ffn` on int8 expert weights `q8` ({"wu": (q, scale),
+    ...}, from `quantize_experts`): int8 x int8 contractions into exact
+    int32 accumulators, dequantized in f32 by the row activation scale
+    times the per-channel weight scale, the gate nonlinearity in f32, the
+    rows re-quantized before the down projection, the result cast back to
+    buf's dtype."""
+    act = _act_fn(cfg)
+    xq, sx = _quantize_rows(buf.float())
+    wuq, su = q8["wu"]
+    up = int8_expert_matmul(xq, wuq).float() * sx * su[None, :, 0, None, :]
+    if cfg.gated_mlp:
+        wgq, sg = q8["wg"]
+        gate = int8_expert_matmul(xq, wgq).float() * sx \
+            * sg[None, :, 0, None, :]
+        up = act(gate) * up
+    else:
+        up = act(up)
+    uq, sup = _quantize_rows(up)
+    wdq, sd = q8["wd"]
+    out = int8_expert_matmul(uq, wdq).float() * sup * sd[None, :, 0, None, :]
+    return out.to(buf.dtype)
+
+
+def moe_expert_ffn(buf, p, cfg: ModelConfig):
+    """The per-expert (gated) FFN over the (B, E, C, D) dispatch buffer.
+    With `cfg.quant == "int8"` the int8 route: on `p["q8"]` where the
+    caller quantized the weights ahead (the serving engine does, once),
+    else on weights quantized here; both give the same integers."""
+    if cfg.quant == "int8":
+        q8 = p["q8"] if "q8" in p else quantize_experts(p)
+        return moe_expert_ffn_q8(buf, q8, cfg)
+    act = _act_fn(cfg)
+    up = _expert_mm(buf, p["wu"])
+    if cfg.gated_mlp:
+        up = act(_expert_mm(buf, p["wg"])) * up
+    else:
+        up = act(up)
+    return _expert_mm(up, p["wd"])
+
+
+def moe_combine(out_buf, topi, pos, w, dtype):
+    """Gather each token's expert outputs back from the (B, E, C, D)
+    buffer and sum them with the gate weights. A dropped token's position
+    (>= C) is clamped to C - 1, as the reference's gather clamps it, and
+    its weight is zero."""
+    b, s, k = topi.shape
+    bidx = torch.arange(b, device=out_buf.device)[:, None, None]
+    gathered = out_buf[bidx.expand(b, s, k), topi,
+                       pos.clamp(max=out_buf.shape[2] - 1)]   # (B,S,k,D)
+    return (gathered * w[..., None].to(dtype)).sum(2)
+
+
+def moe_forward(x, p, cfg: ModelConfig):
+    """Top-k expert MLP with per-row capacity dispatch: `moe_dispatch`,
+    `moe_expert_ffn`, `moe_combine`, plus the shared experts (sigmoid
+    gated for qwen2-moe). Returns (y, aux), aux the Switch-style
+    load-balance loss in f32."""
+    e, k = cfg.n_experts, cfg.top_k
+    buf, topi, pos, w, gates = moe_dispatch(x, p["router"], cfg)
+
+    me = gates.float().mean(dim=(0, 1))
+    ce = F.one_hot(topi, e).float().sum(2).mean(dim=(0, 1)) / k
+    aux = e * (me * ce).sum()
+
+    out_buf = moe_expert_ffn(buf, p, cfg)
+    y = moe_combine(out_buf, topi, pos, w, x.dtype)
+
+    if cfg.n_shared_experts:
+        sh = mlp_forward(x, p["shared"], cfg)
+        rt = _router_dtype(x)
+        sg = torch.sigmoid(x.to(rt) @ p["shared_gate"].to(rt))
+        y = y + (sh * sg.to(x.dtype) if cfg.name.startswith("qwen2-moe")
+                 else sh)
+    return y, aux

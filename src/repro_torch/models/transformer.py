@@ -1,5 +1,5 @@
 """Model assembly: params and forward (train / prefill / decode) for
-attention + dense-MLP decoders.
+attention decoders with dense or routed-MoE MLPs.
 
 Counterpart of `repro.models.transformer`. The reference scans over
 blocks under `jax.checkpoint`; here a plain Python loop walks the blocks,
@@ -12,8 +12,11 @@ Forward modes:
   * cache given, S==1         -> decode step
 
 Attention runs through `kernels.ops`: prefill (every S > 1) through the
-flash-attention kernel, decode through the decode-attention kernel.
-MoE, Mamba, RWKV, cross-attention and M-RoPE raise `NotImplementedError`.
+flash-attention kernel, decode through the decode-attention kernel, full
+or sliding-window (the cache is then a ring as wide as the window). MoE
+layers (mixtral, qwen2-moe) run `layers.moe_forward`, with int8 experts
+under `cfg.quant == "int8"`; their load-balance losses sum into `aux`.
+Mamba, RWKV, cross-attention and M-RoPE raise `NotImplementedError`.
 """
 
 from __future__ import annotations
@@ -43,15 +46,12 @@ def layer_defs(cfg: ModelConfig, spec: LayerSpec, name: str) -> dict:
     if spec.cross_attn:
         raise NotImplementedError(
             f"{cfg.name}: cross-attention is not ported yet ({_ZOO})")
-    if spec.mlp == "moe":
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet "
-            "(ROADMAP Queue 1, item 8)")
     d = {"ln1": L.norm_defs(cfg, f"{name}.ln1"),
          "attn": L.attn_defs(cfg, f"{name}.attn")}
     if spec.mlp != "none":
         d["ln2"] = L.norm_defs(cfg, f"{name}.ln2")
-        d["mlp"] = L.mlp_defs(cfg, f"{name}.mlp")
+        d["mlp"] = (L.moe_defs(cfg, f"{name}.moe") if spec.mlp == "moe"
+                    else L.mlp_defs(cfg, f"{name}.mlp"))
     return d
 
 
@@ -97,6 +97,30 @@ def init_params(rng, cfg: ModelConfig, device=None) -> dict:
     return tree_map(mk, param_defs(cfg))
 
 
+def quantize_moe_params(params, cfg: ModelConfig) -> dict:
+    """`params` with the int8 expert weights of every MoE layer added under
+    its `mlp` dict as `q8` (`layers.quantize_experts`), quantized once, one
+    block at a time (an f32 copy of a whole stack would not fit beside the
+    weights at full width). `forward` under `cfg.quant == "int8"` then
+    uses them; without them it quantizes in every forward, to the same
+    integers. The other leaves are shared, not copied."""
+    layers = []
+    for spec, lp in zip(cfg.layer_pattern(), params["layers"]):
+        if spec.mlp == "moe":
+            q8 = {}
+            for i in range(cfg.n_blocks):
+                one = L.quantize_experts(tree_map(lambda t: t[i],
+                                                  lp["mlp"]))
+                for n, (q, scale) in one.items():
+                    if n not in q8:
+                        q8[n] = tuple(t.new_empty((cfg.n_blocks,) + t.shape)
+                                      for t in (q, scale))
+                    q8[n][0][i], q8[n][1][i] = q, scale
+            lp = dict(lp, mlp=dict(lp["mlp"], q8=q8))
+        layers.append(lp)
+    return dict(params, layers=layers)
+
+
 # --------------------------------------------------------------------- #
 # attention sub-layer with all cache modes
 # --------------------------------------------------------------------- #
@@ -125,31 +149,41 @@ def _attention(x, p, cfg: ModelConfig, rope, kv_cache, index, width):
 
 def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
                   cache_slice, index, width):
-    """One pattern position. Returns (x, new_cache_slice); the reference's
-    third value, the MoE aux loss, is zero for the dense layers here."""
+    """One pattern position. Returns (x, new_cache_slice, aux): aux is the
+    MoE layer's load-balance loss, a Python 0.0 for a dense layer (no
+    device op)."""
+    aux = 0.0
     h = L.apply_norm(x, p["ln1"], cfg)
     o, new_cache = _attention(h, p["attn"], cfg, rope, cache_slice, index,
                               width)
     x = x + o
     if spec.mlp != "none":
         h = L.apply_norm(x, p["ln2"], cfg)
-        x = x + L.mlp_forward(h, p["mlp"], cfg)
-    return x, new_cache
+        if spec.mlp == "moe":
+            o, aux = L.moe_forward(h, p["mlp"], cfg)
+        else:
+            o = L.mlp_forward(h, p["mlp"], cfg)
+        x = x + o
+    return x, new_cache, aux
 
 
 def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
                   width):
-    """Walk the blocks in order. Cache slices are views into the stacked
-    (blocks, B, W, KVH, hd) tensors, so the writes land in place."""
+    """Walk the blocks in order, summing the layers' aux losses in the
+    reference scan's order (a Python 0.0 while no MoE layer has run).
+    Cache slices are views into the stacked (blocks, B, W, KVH, hd)
+    tensors, so the writes land in place."""
     pattern = cfg.layer_pattern()
+    aux = 0.0
     for blk in range(cfg.n_blocks):
         for i, spec in enumerate(pattern):
             lp = tree_map(lambda t: t[blk], params["layers"][i])
             sl = (None if cache_layers is None else
                   {"k": cache_layers[i]["k"][blk],
                    "v": cache_layers[i]["v"][blk]})
-            x, _ = block_forward(x, spec, lp, cfg, rope, sl, index, width)
-    return x, cache_layers
+            x, _, a = block_forward(x, spec, lp, cfg, rope, sl, index, width)
+            aux = aux + a
+    return x, cache_layers, aux
 
 
 # --------------------------------------------------------------------- #
@@ -192,8 +226,8 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
             # per-row index (continuous batching: slots at skewed positions)
             attn_index = positions[:, -1]
 
-    x, new_layers = stack_forward(x, params, cfg, rope, cache_layers,
-                                  attn_index, width)
+    x, new_layers, aux = stack_forward(x, params, cfg, rope, cache_layers,
+                                       attn_index, width)
 
     x = L.apply_norm(x, params["final_norm"], cfg)
     wv = params["embed"] if cfg.tie_embeddings else params["unembed"]
@@ -207,5 +241,6 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
             new_index = torch.maximum(
                 new_index, positions[:, -1].max() + 1).to(torch.int32)
         new_cache = dict(cache, index=new_index, layers=new_layers)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)   # no MoE layers
+    if not torch.is_tensor(aux):                           # no MoE layer
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
     return logits, new_cache, aux

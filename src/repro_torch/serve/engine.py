@@ -6,7 +6,9 @@ Counterpart of `repro.serve.engine` with its fused engine
 each slot keeps its own position, passed to the model as `positions`, so
 one decode step advances every live slot by one token whatever the skew.
 Greedy sampling by default; temperature sampling draws from the engine's
-`torch.Generator` (its bits differ from `jax.random`'s).
+`torch.Generator` (its bits differ from `jax.random`'s). With
+`cfg.quant == "int8"` the engine quantizes the MoE expert weights once,
+at construction, and every forward runs on those integers.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import time
 import torch
 
 from ..device import resolve_device
-from ..models import ModelConfig, forward, init_cache
+from ..models import ModelConfig, forward, init_cache, quantize_moe_params
 
 
 def sample(logits, generator=None, temperature: float = 0.0):
@@ -63,7 +65,8 @@ class ServeEngine:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine on {self.device}")
         self.cfg = cfg
-        self.params = params
+        self.params = (quantize_moe_params(params, cfg)
+                       if cfg.quant == "int8" else params)
         self.n_slots = batch_slots
         self.max_len = max_len
         self.temperature = temperature

@@ -18,6 +18,7 @@ from repro_torch.models import param_defs as t_param_defs
 
 DENSE = ["granite-3-8b", "deepseek-coder-33b", "llama3-405b",
          "starcoder2-7b"]
+MOE = ["mixtral-8x7b", "qwen2-moe-a2.7b"]
 
 
 def flat(tree, prefix=""):
@@ -41,7 +42,7 @@ def _def_table(defs, cfg):
 
 
 @pytest.mark.parametrize("table", ["ARCHS", "REDUCED"])
-@pytest.mark.parametrize("name", DENSE)
+@pytest.mark.parametrize("name", DENSE + MOE)
 def test_param_defs_match_reference(table, name):
     ref_cfg = (ARCHS if table == "ARCHS" else REDUCED)[name]
     cfg = (T_ARCHS if table == "ARCHS" else T_REDUCED)[name]
@@ -50,16 +51,42 @@ def test_param_defs_match_reference(table, name):
 
 
 def test_unported_layers_raise():
-    for name in ("mixtral-8x7b", "jamba-1.5-large-398b", "rwkv6-3b",
-                 "whisper-tiny"):
+    for name in ("jamba-1.5-large-398b", "rwkv6-3b", "whisper-tiny"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             t_param_defs(T_REDUCED[name])
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_bridge_round_trips_bits(dtype):
+    _round_trip("granite-3-8b", dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", MOE)
+def test_bridge_round_trips_moe_bits(name, dtype):
+    _round_trip(name, dtype)
+
+
+@pytest.mark.parametrize("table", ["ARCHS", "REDUCED"])
+@pytest.mark.parametrize("name", MOE)
+def test_moe_pattern_and_param_count_match_reference(table, name):
+    """Every layer is MoE (period 1), `quant` is carried, and the counts
+    that size the model agree with the reference's."""
+    ref_cfg = (ARCHS if table == "ARCHS" else REDUCED)[name]
+    cfg = (T_ARCHS if table == "ARCHS" else T_REDUCED)[name]
+    assert [(s.kind, s.mlp, s.cross_attn) for s in cfg.layer_pattern()] == \
+        [(s.kind, s.mlp, s.cross_attn) for s in ref_cfg.layer_pattern()] == \
+        [("attn", "moe", False)]
+    for active in (False, True):
+        assert cfg.param_count(active) == ref_cfg.param_count(active)
     import dataclasses
-    ref_cfg = dataclasses.replace(REDUCED["granite-3-8b"], dtype=dtype)
+    assert dataclasses.replace(cfg, quant="int8").quant == "int8"
+    assert cfg.quant == ref_cfg.quant == ""
+
+
+def _round_trip(name, dtype):
+    import dataclasses
+    ref_cfg = dataclasses.replace(REDUCED[name], dtype=dtype)
     params = init_params(jax.random.PRNGKey(0), ref_cfg, Shardings(None))
     arrays = jax.tree.map(np.asarray, params)
     tree = bridge.params_from_numpy(arrays, device="cpu")
