@@ -161,6 +161,19 @@ Phases, each of which raises (exit code != 0) on failure:
    ring), every attention call held to the plain version in bf16 and f64
    in P5's scale-relative form (as phase 4's bf16 run), every prefill on
    the tensor-core route.
+13. The program census (`core.census`) on the card's programs. (a) The
+   suitability entry point, `python -m repro_torch.benchmarks.run
+   suitability_bench` (its `main`, in process), with its inputs and
+   parameters on the card: it must pass, launch no kernel, and print the
+   reference's verdicts (SUITABILITY_VERDICTS) for the nine PrIM rows and
+   the two LM steps. (b) The census of granite-3-8b's decode step as
+   phase 5's engine runs it (40 layers, bf16, 4 slots x 2048, positions
+   per slot), on parameters made under FakeTensorMode: its FLOPs, bytes
+   and OI, scored on the modelled TPU v5e and UPMEM machines; it must be
+   memory-bound on the TPU. Its bytes over what the card moves at
+   HBM_BYTES_PER_S in phase 5's measured decode ms/step is the step's
+   share of its memory roof, which must not exceed ROOF_SHARE_MAX. The
+   same for qwen2-moe-a2.7b's bf16 decode step against phase 11's ms/step.
 
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
@@ -176,6 +189,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import io
 import json
 import re
 import statistics
@@ -183,7 +197,7 @@ import subprocess
 import sys
 import time
 import zlib
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 from pathlib import Path
 
 import torch
@@ -286,6 +300,31 @@ INT8_CPU_SHARE = 0.5
 INT8_LOGIT_GATE = 0.05      # tests/test_quant.py: 0 < |int8 - f32| < 0.05
 SWA_PROMPT = 4200
 SWA_MAX_LEN = 4608
+# phase 13: the reference's suitability verdicts (repro.core.suitability
+# on analyze_hlo, as benchmarks/suitability_bench.py scores them;
+# tests/test_torch_suitability.py holds these constants to it). PrIM rows
+# at n = 4096 on the modelled UPMEM system: (KT1 memory-bound, KT2 simple
+# ops, KT3 low communication, PIM-suitable); LM steps of REDUCED
+# granite-3-8b: memory-bound on the modelled TPU v5e. The reference's
+# train row comes with the port of train/.
+SUITABILITY_VERDICTS = {
+    "VA": (True, True, True, True),
+    "GEMV": (True, True, True, True),
+    "SpMV": (True, True, True, True),
+    "BS": (True, True, True, True),
+    "RED": (True, True, True, True),
+    "SCAN-SSA": (True, True, True, True),
+    "TRNS": (False, True, True, False),
+    "TS": (True, True, True, True),
+    "HST-S": (True, False, True, False),
+    "prefill": True,
+    "decode": True,
+}
+# phase 13: census bytes of a decode step over what the card can move in
+# its measured ms/step; above this the census would count bytes the step
+# cannot have moved
+ROOF_SHARE_MAX = 1.05
+CENSUS_SLOTS, CENSUS_MAX_LEN = 4, 2048      # phase 5's engine
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -2156,7 +2195,7 @@ def moe_serve(kernels):
     """Phase 11 (c): qwen2-moe-a2.7b at full width and depth, bf16, on
     phase 5's workload, served once with bf16 experts and once with
     quant="int8" (the engine quantizes the experts once). Returns the
-    attention launches of both serves."""
+    attention launches of both serves and each serve's decode ms/step."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import forward, init_cache, tree_map
     from repro_torch.models import layers as L
@@ -2173,7 +2212,7 @@ def moe_serve(kernels):
         f"{sum(t.numel() for t in leaves)} parameters, {weight_bytes} bytes,"
         f" max_memory_allocated {torch.cuda.max_memory_allocated()}")
     total = {name: 0 for name in kernels}
-    runs = {}
+    runs, decode_ms = {}, {}
     for quant in ("", "int8"):
         label = quant or "bf16"
         if quant:
@@ -2230,6 +2269,7 @@ def moe_serve(kernels):
                                  f"{mm}, want {want_mm}")
         for name in total:
             total[name] += launches[name]
+        decode_ms[label] = metrics["decode_ms_per_step"]
         for r, ttft, toks in zip(done, metrics["ttft_ms"], metrics["tokens"]):
             log(f"  {label} req {r.rid}: prompt {len(r.prompt)}, TTFT "
                 f"{ttft:.1f} ms, tokens {toks}...")
@@ -2257,7 +2297,7 @@ def moe_serve(kernels):
         f"{int(lb.argmax())}; identical greedy tokens {same} of {n} "
         f"({same / n:.1%})")
     del engine, params
-    return total
+    return total, decode_ms
 
 
 # --------------------------------------------------------------------- #
@@ -2369,6 +2409,97 @@ def window_checks(ops, ref, kernels):
     return total
 
 
+# --------------------------------------------------------------------- #
+# phase 13: the program census
+# --------------------------------------------------------------------- #
+
+def printed_verdicts(text: str) -> dict:
+    """The verdicts suitability_bench printed: PrIM workload -> (KT1, KT2,
+    KT3, PIM-suitable), LM step -> memory-bound."""
+    out = {}
+    for line in text.splitlines():
+        cells = [c.strip() for c in line.strip().strip("|").split("|")]
+        if cells[0] not in SUITABILITY_VERDICTS:
+            continue
+        if len(cells) == 6:
+            out[cells[0]] = tuple(c == "True" for c in cells[2:])
+        elif len(cells) == 4:
+            out[cells[0]] = cells[2] == "True"
+    return out
+
+
+def suitability_entry_point(kernels):
+    """Phase 13 (a): `python -m repro_torch.benchmarks.run
+    suitability_bench`, in process, on the card."""
+    from repro_torch.benchmarks import run
+    reset_counts(kernels)
+    text = io.StringIO()
+    with redirect_stdout(text):
+        rc = run.main(["suitability_bench"])
+    sys.stdout.write(text.getvalue())
+    if rc != 0:
+        raise AssertionError("repro_torch.benchmarks.run suitability_bench "
+                             "failed")
+    read_counts(kernels, "suitability_bench", {})
+    got = printed_verdicts(text.getvalue())
+    log(f"  verdicts {got}")
+    if got != SUITABILITY_VERDICTS:
+        raise AssertionError(f"suitability verdicts {got}, the "
+                             f"reference's {SUITABILITY_VERDICTS}")
+
+
+def decode_step_census(arch: str, decode_ms: float) -> dict:
+    """Phase 13 (b): the census of `arch`'s decode step as phase 5's
+    engine runs it, on fake parameters and cache, beside the measured
+    `decode_ms` per step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.census import analyze_program
+    from repro_torch.core.suitability import score
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.serve.engine import sample
+
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        params = init_params(SEED, cfg, "cpu")
+        cache = init_cache(cfg, CENSUS_SLOTS, CENSUS_MAX_LEN, "cpu")
+
+    def step(p, c, tokens, positions):
+        logits = forward(p, cfg, tokens=tokens, cache=c,
+                         positions=positions)[0]
+        return sample(logits[:, -1])
+    an = analyze_program(step, params, cache,
+                         torch.ones((CENSUS_SLOTS, 1), dtype=torch.int32),
+                         torch.arange(CENSUS_SLOTS, dtype=torch.int32)[:, None]
+                         * 500 + 64)
+    secs = time.perf_counter() - t0
+    oi = an.flops / an.hbm_bytes
+    reps = {m: score(an, name=f"{arch} decode", machine=m)
+            for m in ("tpu_v5e", "upmem_2556")}
+    log(f"  {arch} decode step ({cfg.n_layers} layers, {cfg.dtype}, "
+        f"{CENSUS_SLOTS} slots x {CENSUS_MAX_LEN}): census on fake tensors "
+        f"({an.tracing}) in {secs:.2f}s: flops {an.flops:.0f} (dot "
+        f"{an.dot_flops:.0f}), bytes {an.hbm_bytes:.0f}, OI {oi:.4f}")
+    for m, r in reps.items():
+        log(f"    on the modelled {m}: balance {r.machine_balance:.4g}, "
+            f"memory-bound {r.memory_bound}, complex-op fraction "
+            f"{r.complex_frac:.3f}, PIM-suitable {r.pim_suitable}")
+    if not reps["tpu_v5e"].memory_bound:
+        raise AssertionError(f"{arch} decode is not memory-bound")
+    roof_ms = an.hbm_bytes / HBM_BYTES_PER_S * 1e3
+    share = roof_ms / decode_ms
+    log(f"  {arch} decode: census bytes at {HBM_BYTES_PER_S:.3g} B/s take "
+        f"{roof_ms:.4f} ms; measured {decode_ms:.4f} ms/step; memory-roof "
+        f"share {share:.4f}")
+    if share > ROOF_SHARE_MAX:
+        raise AssertionError(f"{arch} decode: census bytes need {roof_ms} ms"
+                             f" at the card's rate, more than the measured "
+                             f"{decode_ms} ms/step")
+    return {"bytes": an.hbm_bytes, "flops": an.flops, "share": share}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2431,7 +2562,8 @@ def main() -> int:
 
     log("phase 5: main path: granite-3-8b, 40 layers, bf16, ServeEngine")
     kernels = ops.kernels()
-    launches = main_path(kernels)["launches"]
+    served = main_path(kernels)
+    launches = served["launches"]
     torch.cuda.empty_cache()
 
     log("phase 6: streaming kernels at the paper's sizes, through ops")
@@ -2461,13 +2593,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 11: qwen2-moe-a2.7b, 24 layers, bf16 and int8 experts, "
         "ServeEngine")
-    launches11 = moe_serve(kernels)
+    launches11, moe_decode_ms = moe_serve(kernels)
     torch.cuda.empty_cache()
 
     log("phase 12: sliding window: REDUCED starcoder2-7b and mixtral-8x7b "
         f"past the ring wrap; starcoder2-7b full width, {SWA_PROMPT}-token "
         "prompt")
     launches12 = window_checks(ops, ref, kernels)
+    torch.cuda.empty_cache()
+
+    log("phase 13: the suitability entry point, repro_torch.benchmarks.run "
+        "suitability_bench; the census of the full-width decode steps")
+    suitability_entry_point(kernels)
+    decode_step_census("granite-3-8b", served["decode_ms_per_step"])
+    decode_step_census("qwen2-moe-a2.7b", moe_decode_ms["bf16"])
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]

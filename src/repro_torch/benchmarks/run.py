@@ -3,6 +3,8 @@
   microbench        Fig. 2 (throughput vs OI), Fig. 3 (op/dtype throughput)
   prim_bench        Table I (16 PrIM workloads, bank-parallel vs oracle),
                     Fig. 4 (cross-system model)
+  suitability_bench Key Takeaways 1-3 (the census of each program, scored
+                    on the modelled UPMEM and TPU machines)
 
 Only the ported modules are registered; the rest of the reference's
 `benchmarks/` comes with later slices of the port.
@@ -47,8 +49,9 @@ class Report:
 
 
 def main(argv=None) -> int:
-    from . import microbench, prim_bench
-    modules = {"microbench": microbench, "prim_bench": prim_bench}
+    from . import microbench, prim_bench, suitability_bench
+    modules = {"microbench": microbench, "prim_bench": prim_bench,
+               "suitability_bench": suitability_bench}
     ap = argparse.ArgumentParser(prog="repro_torch.benchmarks.run")
     ap.add_argument("modules", nargs="*", metavar="module",
                     help=f"any of {list(modules)} (default: all)")

@@ -55,7 +55,7 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch import bridge, prim
-    from repro_torch.benchmarks import prim_bench
+    from repro_torch.benchmarks import prim_bench, suitability_bench
     from repro_torch.benchmarks import run as bench_run
     from repro_torch.configs import REDUCED
     from repro_torch.core.bank_parallel import BankGrid
@@ -72,6 +72,9 @@ def test_entry_points_default_to_the_card():
                  lambda: BankGrid(8),
                  lambda: prim.make_inputs("VA", 8, torch.Generator()),
                  lambda: prim_bench.run(bench_run.Report()),
-                 lambda: bench_run.main(["prim_bench"])):
+                 lambda: bench_run.main(["prim_bench"]),
+                 lambda: suitability_bench.run(bench_run.Report()),
+                 lambda: suitability_bench.prim_reports(),
+                 lambda: bench_run.main(["suitability_bench"])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
