@@ -19,7 +19,10 @@ Phases, each of which raises (exit code != 0) on failure:
    HMMA instructions.
 3. Attention kernels against their plain PyTorch versions, at the serving
    path's shapes and at the reference test sweep's, in f32 and bf16, plus
-   rows with no unmasked key (window > 0, q_pos >= Skv + window - 1);
+   rows with no unmasked key (window > 0, q_pos >= Skv + window - 1),
+   and chunks whose queries start q_offset positions past the first key
+   (FLASH_OFFSET_CASES, f32 and bf16; q_offset = 0 bit-equal to the call
+   without it);
    in bf16 also ragged Sq/Skv at hd 64 and 128, hd 16, 48, 72 and 256,
    q/k/v views that are not 16-byte aligned, decode lengths inside the
    first split, on a split boundary and at W not a multiple of the
@@ -174,6 +177,36 @@ Phases, each of which raises (exit code != 0) on failure:
    HBM_BYTES_PER_S in phase 5's measured decode ms/step is the step's
    share of its memory roof, which must not exceed ROOF_SHARE_MAX. The
    same for qwen2-moe-a2.7b's bf16 decode step against phase 11's ms/step.
+14. The planner-routed path (`repro_torch.dispatch`,
+   `ServeEngine(engine="dispatch")`) on the card. (a) `runtime.execute`
+   of `mixed_pipeline(m=DISPATCH_MIXED_M)` (int32) under the planner's
+   hybrid plan and all-PIM at 1 and MULTIBANK banks: bit-exact to
+   `runtime.reference`, the only launches the transpose kernel's, one per
+   PIM `trns` stage; the decode chain's int32 attention contraction on
+   the card (`workloads._int_einsum`) bit-exact to the CPU's int32 einsum,
+   and `decode_pipeline(REDUCED_DIMS)` all-PIM on 2 banks validated by
+   `runtime.execute`. (b) granite-3-8b at full width, 4 layers, f32: four
+   requests through the fused engine, through the dispatch engine with
+   the planner's plans (one prefill chunk a prompt) and with all-PIM
+   decode at 4 banks: greedy tokens identical and every decode step's
+   logits the fused engine's bits; then prefill in DISPATCH_F32_CHUNK-
+   token chunks (the flash kernel with q_offset) in P1's form, every
+   attention call held to its plain version in f32 and f64, and the
+   first-token logits within DISPATCH_F32_PREFILL_REL of their scale of
+   the fused whole-prompt prefill's. (c) granite-3-8b at full width and depth, bf16, phase
+   5's workload through the dispatch engine, with the planner's plans and
+   with every stage on the PIM device at 4 banks: exactly 40 decode-
+   attention launches a step and 40 flash launches a prefill chunk, all
+   on the tensor-core route, no other kernel, the two serves' tokens
+   equal; planning (engine build) seconds, ms/step, TTFT and peak memory
+   beside phase 5's, the FaceCache stats and host-face fallbacks logged;
+   then phase 4's bf16 form on the dispatch path (a BF16_PROMPT-token
+   prompt in chunks and 8 decode steps, every attention call held to its
+   plain version in bf16 and f64). (d) REDUCED mixtral-8x7b (int8
+   experts, expert_shards=2 on two ranks; its int8 contraction at K = 64,
+   padded to 128, bit-exact to int64) and starcoder2-7b (banded prefill,
+   22-token prompts in 4-token chunks), f32, max_len 32: dispatch tokens
+   identical to the fused engine's on the card.
 
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
@@ -181,8 +214,9 @@ for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
 kernels, scan_lookback included), its `prim_launches` those of phases 9
 and 10 together, and its `moe_swa_launches` those of the counted runs of
 phases 11 and 12 (the two qwen2-moe serves, the kernel runs of the
-wrapping schedules and starcoder2-7b's full-width run). The
-last line is `{"ok": true, "device": {...}}`.
+wrapping schedules and starcoder2-7b's full-width run), and its
+`dispatch_launches` those of phase 14's counted runs. The last line is
+`{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -325,6 +359,20 @@ SUITABILITY_VERDICTS = {
 # cannot have moved
 ROOF_SHARE_MAX = 1.05
 CENSUS_SLOTS, CENSUS_MAX_LEN = 4, 2048      # phase 5's engine
+# phase 14: the mixed PrIM pipeline at the shipped graph's size; the f32
+# dispatch prefill's chunk (prompts of 1-3 chunks)
+DISPATCH_MIXED_M = 4096
+DISPATCH_F32_CHUNK = 128
+# the chunked f32 prefill's first-token logits against the fused
+# whole-prompt prefill's, as a share of their scale over the real vocab:
+# on an H100 (700 W) the four prompts read 1.55e-3, 4.7e-4, 5.1e-4 and 0
+# (one chunk); wrong K/V rows or positions move them by far more
+DISPATCH_F32_PREFILL_REL = 3e-3
+# DispatchPrefillStep's default planning horizon, in chunks
+PREFILL_PLANNED = 4
+# bytes a dropped dispatch engine may leave allocated (its weights and
+# cache are 16.7 GB)
+LEFT_AFTER_DROP = 1 << 30
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -360,6 +408,18 @@ FLASH_CASES = [
     # rows with no unmasked key: q_pos >= Skv + window - 1
     (40, 16, 4, 2, 64, True, 4),
     (300, 100, 4, 2, 128, False, 32),
+]
+# (Sq, Skv, H, KVH, hd, window, q_offset), causal: a chunk of a chunked
+# prefill whose queries sit q_offset positions past the first key (phase
+# 14's path): the fourth 512-token chunk of a 2048-token prompt, a banded
+# prefix whose keys start past 0, a window with an offset (key tiles
+# wholly dead), rows with no key, and no row with a key
+FLASH_OFFSET_CASES = [
+    (512, 2048, 32, 8, 128, 0, 1536),
+    (300, 700, 8, 2, 128, 500, 400),
+    (256, 1024, 4, 2, 64, 64, 768),
+    (100, 64, 4, 2, 64, 16, 60),
+    (32, 16, 2, 2, 64, 4, 40),
 ]
 
 
@@ -537,7 +597,8 @@ def decode_split_cases():
     return cases + [(b, h, kvh, hd, w, [chunk + 1, w])]
 
 
-def flash_case(ops, ref, case, dtype, gen, timed, misaligned=False):
+def flash_case(ops, ref, case, dtype, gen, timed, misaligned=False,
+               q_offset=0):
     from repro_torch.kernels import flash_attention as kfa
     sq, skv, h, kvh, hd, causal, window = case
     dev = "cuda"
@@ -551,15 +612,20 @@ def flash_case(ops, ref, case, dtype, gen, timed, misaligned=False):
         sets = [(mk(1, sq, h, hd), mk(1, skv, kvh, hd), mk(1, skv, kvh, hd))
                 for _ in range(4 if timed else 1)]
     q, k, v = sets[0]
-    got = ops.flash_attention(q, k, v, causal, window)
+    got = ops.flash_attention(q, k, v, causal, window, q_offset)
     err = check_close("flash_attention", dtype, got,
-                      ref.flash_attention(q, k, v, causal, window))
+                      ref.flash_attention(q, k, v, causal, window, q_offset))
+    if not q_offset and not torch.equal(got, ops.flash_attention(
+            q, k, v, causal, window)):
+        raise AssertionError(f"flash_attention {case}: q_offset=0 and the "
+                             f"call without it disagree")
     if misaligned and not torch.equal(got, ops.flash_attention(
             q.contiguous(), k.contiguous(), v.contiguous(), causal, window)):
         raise AssertionError(f"flash_attention {case}: unaligned views and "
                              f"their contiguous copies disagree")
     row = {"case": f"Sq{sq} Skv{skv} H{h} KVH{kvh} hd{hd} causal{int(causal)} "
-                   f"window{window}" + (" unaligned views" if misaligned else ""),
+                   f"window{window}" + (" unaligned views" if misaligned else "")
+                   + (f" q_offset{q_offset}" if q_offset else ""),
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
            "batch": batch, "route": kfa.route(dtype, hd),
            "grid": f"{-(-sq // 64)}x{h}x{batch}={-(-sq // 64) * h * batch}"}
@@ -616,6 +682,11 @@ def kernel_checks(ops, ref):
     for case in ((150, 150, 4, 2, 128, True, 0), (97, 130, 4, 4, 64, False, 40)):
         rows["flash_attention"].append(
             flash_case(ops, ref, case, bf16, gen, timed=False, misaligned=True))
+    for dtype in (torch.float32, bf16):
+        for sq, skv, h, kvh, hd, window, off in FLASH_OFFSET_CASES:
+            rows["flash_attention"].append(
+                flash_case(ops, ref, (sq, skv, h, kvh, hd, True, window),
+                           dtype, gen, timed=False, q_offset=off))
     torch.cuda.synchronize()
     for name, rs in rows.items():
         for r in rs:
@@ -844,10 +915,11 @@ def full_width_bf16_check(ops, ref):
 # phase 5: the main path
 # --------------------------------------------------------------------- #
 
-def serve_workload(arch: str = "granite-3-8b"):
+def serve_workload(arch: str = "granite-3-8b", **engine_kwargs):
     """Phase 5's workload: `arch` (granite-3-8b; phase 11 serves
     qwen2-moe-a2.7b) at full width and depth, random weights from SEED,
-    a ServeEngine of 4 slots x 2048 tokens, and 8 seeded requests with
+    a ServeEngine of 4 slots x 2048 tokens (`engine_kwargs` added: phase
+    14 serves through `engine="dispatch"`), and 8 seeded requests with
     prompts of 64-1500 tokens and 32 new tokens each.
     Returns (cfg, params, engine, requests)."""
     from repro_torch.configs import get_arch
@@ -859,7 +931,7 @@ def serve_workload(arch: str = "granite-3-8b"):
         assert cfg.n_layers == SERVE_LAYERS
     params = init_params(SEED, cfg, "cuda")
     engine = ServeEngine(cfg, params, batch_slots=4, max_len=2048,
-                         seed=SEED, device="cuda")
+                         seed=SEED, device="cuda", **engine_kwargs)
     gen = torch.Generator().manual_seed(SEED + 1)
     lens = torch.randint(64, 1501, (8,), generator=gen).tolist()
     reqs = [Request(i, torch.randint(0, cfg.vocab_size, (n,), generator=gen),
@@ -884,7 +956,8 @@ def serve(engine, reqs):
         "decode_ms_per_step": engine.decode_s * 1e3 / engine.n_decode_steps,
         "decode_tokens_per_s": decode_tokens / engine.decode_s,
         "ttft_ms": [(r.first_token_at - t0) * 1e3 for r in done],
-        "tokens": [r.out_tokens[:8] for r in done]}
+        "tokens": [r.out_tokens[:8] for r in done],
+        "tokens_all": [list(r.out_tokens) for r in done]}
 
 
 def main_path(kernels):
@@ -2500,6 +2573,430 @@ def decode_step_census(arch: str, decode_ms: float) -> dict:
     return {"bytes": an.hbm_bytes, "flops": an.flops, "share": share}
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the planner-routed path on the card
+# --------------------------------------------------------------------- #
+
+def dispatch_counts(kernels, what: str, want: dict, total: dict) -> dict:
+    """Launches since `reset_counts`, which must be `want` (every other
+    kernel 0), every flash launch on the route of `want["flash_route"]`
+    when given; added into `total`."""
+    from repro_torch.kernels import flash_attention as kfa
+    want = dict(want)
+    route = want.pop("flash_route", None)
+    launches = read_counts(kernels, what, want)
+    routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
+    if route is not None and routes[route] != launches["flash_attention"]:
+        raise AssertionError(f"{what}: flash routes {routes}, want every "
+                             f"launch on {route}")
+    for k, n in launches.items():
+        total[k] += n
+    return launches
+
+
+def mixed_runtime(kernels, total, m: int = DISPATCH_MIXED_M,
+                  device: str = "cuda"):
+    """Phase 14 (a): `runtime.execute` of `mixed_pipeline(m)` (int32) under
+    the planner's hybrid plan and all-PIM at 1 and MULTIBANK banks, bit-
+    exact to `runtime.reference`; the only kernel is the transpose, one
+    launch per PIM `trns` stage. Then the decode chain's exact int32
+    contraction on the card and `decode_pipeline(REDUCED_DIMS)` all-PIM."""
+    from repro_torch.core.bank_parallel import BankGrid
+    from repro_torch.dispatch import runtime, workloads
+    from repro_torch.dispatch.placement import plan, pure_plan
+
+    pipe = workloads.mixed_pipeline(m=m, seed=SEED, device=device)
+    g = pipe.graph()
+    plans = {"hybrid": plan(g), "all-PIM": pure_plan(g, "upmem_2556")}
+    log(f"  mixed_pipeline(m={m}) hybrid plan {plans['hybrid'].assignment}")
+    for name, p in plans.items():
+        n_trns = sum(p.assignment[s].startswith("upmem")
+                     for s in ("trns.fwd", "trns.back"))
+        for banks in (1, MULTIBANK):
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            rep = runtime.execute(pipe, p, BankGrid(banks, device))
+            secs = time.perf_counter() - t0
+            launches = dispatch_counts(
+                kernels, f"mixed_pipeline {name} {banks} banks",
+                {"transpose": n_trns}, total)
+            log(f"  mixed_pipeline {name}, {banks} banks: result "
+                f"{int(rep.result)}, max |err| {rep.max_abs_err} against "
+                f"runtime.reference, transpose launches "
+                f"{launches['transpose']}, {secs:.3f}s with validation")
+            if not rep.matches or rep.max_abs_err != 0.0:
+                raise AssertionError(f"mixed_pipeline {name}: not bit-exact")
+    # the decode chain's int32 attention on the card: 16-bit halves in f64
+    # (`workloads._int_einsum`), bit for bit the CPU's int32 einsum on
+    # full-range int32 operands (products and sums wrap)
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    a, b = (torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
+                          device=device, dtype=torch.int32)
+            for shape in ((4, 32, 128), (2048, 32, 128)))
+    got = workloads._int_einsum("bhd,shd->bhs", a, b).cpu()
+    if not torch.equal(got, torch.einsum("bhd,shd->bhs", a.cpu(), b.cpu())):
+        raise AssertionError("_int_einsum on the card is not the CPU's int32")
+    pipe = workloads.decode_pipeline(workloads.REDUCED_DIMS, seed=SEED,
+                                     device=device)
+    reset_counts(kernels)
+    rep = runtime.execute(pipe, pure_plan(pipe.graph(), "upmem_2556"),
+                          BankGrid(2, device))
+    dispatch_counts(kernels, "decode_pipeline all-PIM", {}, total)
+    log(f"  _int_einsum (4x32x128 by 2048x32x128, full-range int32) "
+        f"bit-exact to the CPU's; decode_pipeline(REDUCED_DIMS) all-PIM on 2 "
+        f"banks within rtol 1e-4 of runtime.reference (max |err| "
+        f"{rep.max_abs_err:.3g}), no kernel launched")
+
+
+def all_pim(cfg, prefill_chunks: int = 0) -> dict:
+    """Every decode stage (or, with `prefill_chunks`, every prefill stage
+    of that many chunks) of a dense model on the PIM device."""
+    if prefill_chunks:
+        names = ["head"] + [f"{k}/c{c}" for c in range(prefill_chunks)
+                            for k in ["embed"] + [
+                                f"{s}{i}" for i in range(cfg.n_layers)
+                                for s in ("qkv", "attn", "o", "mlp")]]
+    else:
+        names = ["embed", "head"] + [f"{s}{i}" for i in range(cfg.n_layers)
+                                     for s in ("qkv", "attn", "o", "mlp")]
+    return {n: "upmem_2556" for n in names}
+
+
+def recorded_serve(engine, reqs):
+    """`serve(engine, reqs)`, with every admission's first-token logits
+    and every decode step's logits kept: the dispatch steps', or the
+    fused forward's. The recorders are taken off again after the run
+    (they refer to the engine: left on, they would keep it alive)."""
+    from repro_torch.serve import engine as engine_mod
+    logits, first = [], []
+    real_prefill = engine._prefill_one
+    engine._prefill_one = lambda *a: first.append(
+        real_prefill(*a).clone()) or first[-1]
+    step = engine._dispatch_decode
+    if step is not None:
+        real = step.logits
+        step.logits = lambda *a: logits.append(real(*a)) or logits[-1]
+    else:
+        real = engine_mod.forward
+
+        def recording(*a, **kw):
+            out = real(*a, **kw)
+            if kw["tokens"].shape[1] == 1:
+                logits.append(out[0].clone())
+            return out
+        engine_mod.forward = recording
+    try:
+        done, metrics = serve(engine, reqs)
+    finally:
+        del engine._prefill_one
+        if step is None:
+            engine_mod.forward = real
+        else:
+            del step.logits
+    return done, metrics, logits, first
+
+
+def dispatch_f32_check(ops, ref, kernels, total, device: str = "cuda"):
+    """Phase 14 (b): granite-3-8b at full width, 4 layers, f32: four
+    requests served by the fused engine, by `engine="dispatch"` with the
+    planner's plans (each prompt one prefill chunk) and by all-PIM decode
+    at 4 banks (prefill fused): greedy tokens identical and every decode
+    step's logits bit for bit the fused engine's. Then prefill in
+    DISPATCH_F32_CHUNK-token chunks (the flash kernel with q_offset, CUDA
+    cores) in P1's form: every attention call within CALL_TOL of f64 or
+    no further from it than the plain f32 version, and each prompt's
+    first-token logits within DISPATCH_F32_PREFILL_REL of their scale of
+    the fused whole-prompt prefill's (the one-chunk dispatch prefill's
+    are its bits). Its tokens are logged beside the fused ones: chunked
+    and whole-prompt prefill round apart, and later steps amplify it."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bank_parallel import BankGrid
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("granite-3-8b"), n_layers=4,
+                              dtype="float32")
+    params = init_params(SEED, cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    lens = (300, 257, 180, 64)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+               for n in lens]
+    runs = {"fused": None,
+            "dispatch": {"prefill_chunk": 512},
+            "all-PIM x4": {"grid": BankGrid(4, device),
+                           "prefill_engine": "jit",
+                           "force_assignment": all_pim(cfg)},
+            "chunked": {"prefill_chunk": DISPATCH_F32_CHUNK}}
+    out, worst = {}, {}
+    for name, dk in runs.items():
+        eng = ServeEngine(cfg, params, batch_slots=4, max_len=512,
+                          seed=SEED, device=device,
+                          engine="jit" if dk is None else "dispatch",
+                          dispatch_kwargs=dk)
+        reqs = [Request(i, p, 8) for i, p in enumerate(prompts)]
+        reset_counts(kernels)
+        if name == "chunked":
+            with checked_attention(ops, ref, worst):
+                done, metrics, logits, first = recorded_serve(eng, reqs)
+        else:
+            done, metrics, logits, first = recorded_serve(eng, reqs)
+        chunks = sum(len(eng.prefill_splits(n)) for n in lens)
+        launches = dispatch_counts(kernels, f"f32 {name}", {
+            "decode_attention": cfg.n_layers * eng.n_decode_steps,
+            "flash_attention": cfg.n_layers * chunks,
+            "flash_route": "cuda_core"}, total if dk is not None else
+            {k: 0 for k in kernels})
+        out[name] = ([r.out_tokens for r in done], logits, first)
+        log(f"  f32 4 layers, {name}: tokens {out[name][0]}; launches "
+            f"{launches}; decode {metrics['decode_ms_per_step']:.2f} ms/step")
+    toks, logits, first = out["fused"]
+    for name in ("dispatch", "all-PIM x4"):
+        got_toks, got, _ = out[name]
+        if got_toks != toks:
+            raise AssertionError(f"f32 {name}: tokens {got_toks}, fused "
+                                 f"{toks}")
+        if len(got) != len(logits) or not all(
+                torch.equal(a, b) for a, b in zip(got, logits)):
+            raise AssertionError(f"f32 {name}: decode logits are not the "
+                                 f"fused engine's bits")
+    log(f"  f32: {len(logits)} decode steps' logits bit-identical to the "
+        f"fused engine's, planned and all-PIM at 4 banks")
+    log_worst(worst, f" (kernel-f64 limit: {CALL_TOL} or plain-f64)")
+    if not all(torch.equal(a, b) for a, b in zip(out["dispatch"][2], first)):
+        raise AssertionError("f32 dispatch: one-chunk prefill logits are "
+                             "not the fused engine's bits")
+    same = sum(a == b for x, y in zip(out["chunked"][0], toks)
+               for a, b in zip(x, y))
+    v = cfg.vocab_size                  # past it, the padding's -1e30
+    rel = [float((a[:v] - b[:v]).abs().max() / b[:v].abs().max())
+           for a, b in zip(out["chunked"][2], first)]
+    log(f"  f32 chunked prefill: first-token logits max |chunked - fused| "
+        f"/ max |fused| {rel} (limit {DISPATCH_F32_PREFILL_REL}); tokens "
+        f"equal to the fused engine's {same} of {sum(map(len, toks))}; "
+        f"one-chunk dispatch prefill logits bit-identical to fused")
+    if len(rel) != len(lens) or max(rel) > DISPATCH_F32_PREFILL_REL:
+        raise AssertionError(f"f32 chunked prefill: first-token logits "
+                             f"{rel} of scale from the fused prefill's")
+    if sorted(worst) != ["decode_attention", "flash_attention"]:
+        raise AssertionError(f"f32 chunked: attention calls seen {worst}")
+    for name, w in worst.items():
+        if not w["kernel-f64"] <= max(CALL_TOL, w["plain-f64"]):
+            raise AssertionError(f"f32 chunked: {name} kernel is "
+                                 f"{w['kernel-f64']:.3g} of the output's "
+                                 f"scale from f64, the plain version "
+                                 f"{w['plain-f64']:.3g} (limit {CALL_TOL})")
+
+
+def dispatch_serve(ops, ref, kernels, total, fused: dict,
+                   device: str = "cuda"):
+    """Phase 14 (c): granite-3-8b at full width and depth (bf16) serving
+    phase 5's workload through `ServeEngine(engine="dispatch")`, once with
+    the planner's plans and once with every stage on the PIM device at 4
+    banks: exactly 40 decode launches a step and 40 flash launches a
+    prefill chunk (tensor-core route), no other kernel; both serves the
+    same tokens (their faces run the same calls). Then phase 4's bf16 form
+    on the dispatch path: a BF16_PROMPT-token prompt and 8 decode steps,
+    every attention call held to the plain version in bf16 and f64.
+    Returns the serving metrics of both serves."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.bank_parallel import BankGrid
+    from repro_torch.kernels import flash_attention as kfa
+
+    cfg = get_arch("granite-3-8b")
+    runs = {"planned": {},
+            "all-PIM x4": {"grid": BankGrid(4, device)}}
+    results = {}
+    for name, dk in runs.items():
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if name == "all-PIM x4":
+            dk["force_assignment"] = all_pim(cfg)
+            # every chunk the prefill step plans (its default horizon,
+            # PREFILL_PLANNED); later chunks route as the last planned
+            dk["prefill_force_assignment"] = all_pim(cfg, PREFILL_PLANNED)
+        cfg, params, engine, reqs = serve_workload(
+            engine="dispatch", dispatch_kwargs=dk)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        reset_counts(kernels)
+        done, metrics = serve(engine, reqs)
+        chunks = sum(len(engine.prefill_splits(len(r.prompt))) for r in done)
+        launches = dispatch_counts(kernels, f"dispatch serve {name}", {
+            "decode_attention": SERVE_LAYERS * engine.n_decode_steps,
+            "flash_attention": SERVE_LAYERS * chunks,
+            "flash_route": "tensor_core"}, total)
+        dec, pre = (engine._dispatch_decode.faces.stats,
+                    engine._dispatch_prefill.faces.stats)
+        same = sum(a == b for r, f in zip(done, fused["tokens_all"])
+                   for a, b in zip(r.out_tokens, f))
+        results[name] = dict(metrics, tokens_all=[r.out_tokens
+                                                  for r in done])
+        log(f"  dispatch {name}: engine built (weights, cache, both plans) "
+            f"in {build_s:.2f}s; planning {engine._dispatch_decode.plan_s:.2f}"
+            f"s decode ({engine.dispatch_plan.method}), "
+            f"{engine._dispatch_prefill.plan_s:.2f}s prefill "
+            f"({engine.prefill_plan.method}, "
+            f"{engine._dispatch_prefill.n_chunks_planned} chunks planned)")
+        log(f"  dispatch {name}: launches {launches} ({engine.n_decode_steps}"
+            f" decode steps, {chunks} prefill chunks over "
+            f"{engine.n_prefills} admissions), flash routes "
+            f"{dict(kfa.KERNEL.route_launches)}")
+        log(f"  dispatch {name}: decode {metrics['decode_ms_per_step']:.2f} "
+            f"ms/step (fused phase 5: {fused['decode_ms_per_step']:.2f}), "
+            f"prefill {metrics['prefill_ms']:.1f} ms/admission (fused "
+            f"{fused['prefill_ms']:.1f}), TTFT ms "
+            f"{[round(t, 1) for t in metrics['ttft_ms']]} (fused "
+            f"{[round(t, 1) for t in fused['ttft_ms']]}), serve wall "
+            f"{metrics['wall_s']:.3f}s (fused {fused['wall_s']:.3f}s)")
+        log(f"  dispatch {name}: max_memory_allocated "
+            f"{torch.cuda.max_memory_allocated()}; tokens equal to the "
+            f"fused serve's {same} of {sum(map(len, fused['tokens_all']))}")
+        log(f"  dispatch {name}: FaceCache decode {dec}")
+        log(f"  dispatch {name}: FaceCache prefill {pre}")
+        if name == "all-PIM x4":
+            if results[name]["tokens_all"] != \
+                    results["planned"]["tokens_all"]:
+                raise AssertionError("dispatch all-PIM x4 and planned "
+                                     "serves chose different tokens")
+            if dec["pim"]["calls"] == 0 or dec["host"]["calls"] != 0:
+                raise AssertionError(f"all-PIM decode faces {dec}")
+        for r in done:
+            if len(r.out_tokens) != r.max_new_tokens or not all(
+                    0 <= t < cfg.vocab_size for t in r.out_tokens):
+                raise AssertionError(f"dispatch {name} req {r.rid}: tokens "
+                                     f"{r.out_tokens}")
+        if name == "planned":
+            dispatch_bf16_form(ops, ref, kernels, total, engine, cfg)
+        # nothing refers back to the engine: dropping it frees its
+        # weights and cache at once, with no cycle collection
+        del engine, params
+        left = torch.cuda.memory_allocated() - base
+        log(f"  dispatch {name}: {left} bytes still allocated after the "
+            f"engine is dropped")
+        if left > LEFT_AFTER_DROP:
+            raise AssertionError(f"dispatch {name}: {left} bytes outlive "
+                                 f"the dropped engine")
+        torch.cuda.empty_cache()
+    return results
+
+
+def dispatch_bf16_form(ops, ref, kernels, total, engine, cfg):
+    """Phase 4's bf16 form on the dispatch path: every attention call of a
+    BF16_PROMPT-token admission (prefill chunks through the flash kernel
+    with q_offset) and 8 decode steps held to its plain version in bf16
+    and f64 on the model's own activations."""
+    from repro_torch.serve import Request
+    gen = torch.Generator().manual_seed(SEED + 3)
+    prompt = torch.randint(0, cfg.vocab_size, (BF16_PROMPT,), generator=gen)
+    worst = {}
+    reset_counts(kernels)
+    with torch.no_grad(), checked_attention(ops, ref, worst):
+        req = Request(100, prompt, 9)
+        engine.admit(req)
+        for _ in range(8):
+            engine.step()
+    chunks = len(engine.prefill_splits(BF16_PROMPT))
+    dispatch_counts(kernels, "dispatch bf16 form", {
+        "decode_attention": 8 * SERVE_LAYERS,
+        "flash_attention": chunks * SERVE_LAYERS,
+        "flash_route": "tensor_core"}, total)
+    log_worst(worst, f" (kernel-f64 limit: TOL or plain-f64 + {CALL_TOL})")
+    log(f"  dispatch bf16 form: {BF16_PROMPT}-token prompt in {chunks} "
+        f"chunks, tokens {req.out_tokens}")
+    if sorted(worst) != ["decode_attention", "flash_attention"]:
+        raise AssertionError(f"dispatch bf16: attention calls seen {worst}")
+    for name, w in worst.items():
+        limit = max(TOL[(name, torch.bfloat16)], w["plain-f64"] + CALL_TOL)
+        if not w["kernel-f64"] <= limit:
+            raise AssertionError(f"dispatch bf16: {name} kernel is "
+                                 f"{w['kernel-f64']:.3g} of the output's "
+                                 f"scale from f64, the plain version "
+                                 f"{w['plain-f64']:.3g} (limit {limit:.3g})")
+
+
+def dispatch_reduced(kernels, total, device: str = "cuda"):
+    """Phase 14 (d): REDUCED mixtral-8x7b (int8 experts, the expert-
+    parallel DAG with expert_shards=2 on two ranks, single-chunk prefill)
+    and starcoder2-7b (banded prefill: 22-token prompts in 4-token chunks),
+    f32, through `engine="dispatch"`: tokens identical to the fused
+    engine's on the card; first the int8 expert contraction at mixtral's
+    REDUCED widths bit-exact to int64."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.serve import Request, ServeEngine
+
+    mix = dataclasses.replace(get_arch("mixtral-8x7b", reduced=True),
+                              dtype="float32", quant="int8")
+    # the int8 expert contraction at these widths (K = 64 is padded to
+    # INT_MM_MIN_K) against an int64 contraction on the CPU
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    fe = mix.moe_d_ff or mix.d_ff
+    for k, n in ((mix.d_model, fe), (fe, mix.d_model)):
+        xq = torch.randint(-127, 128, (2, mix.n_experts, 3, k), generator=gen,
+                           device=device, dtype=torch.int32).to(torch.int8)
+        wq = torch.randint(-127, 128, (mix.n_experts, k, n), generator=gen,
+                           device=device, dtype=torch.int32).to(torch.int8)
+        got = L.int8_expert_matmul(xq, wq).cpu().long()
+        want = torch.einsum("becd,edf->becf", xq.cpu().long(),
+                            wq.cpu().long())
+        if not torch.equal(got, want):
+            raise AssertionError(f"int8_expert_matmul K={k} N={n}: not the "
+                                 f"int64 contraction")
+    log(f"  int8_expert_matmul at {mix.name}'s widths (K {mix.d_model}, "
+        f"{fe}): bit-exact to int64")
+    star = dataclasses.replace(get_arch("starcoder2-7b", reduced=True),
+                               dtype="float32")
+    forced = {}
+    for i in range(mix.n_layers):
+        forced[f"expert{i}@r0"] = "upmem_2556"
+        forced[f"expert{i}@r1"] = "upmem_2556:1"
+    cases = [
+        (mix, [12, 13, 14, 12], 8, 16, {
+            "expert_shards": 2, "force_assignment": forced,
+            "devices": ("xeon", "upmem_2556", "upmem_2556:1"),
+            "prefill_chunk": 32}),
+        (star, [22, 20, 9, 18], 3, 12, {"prefill_chunk": 4}),
+    ]
+    for cfg, lens, budget, steps, dk in cases:
+        params = init_params(SEED, cfg, device)
+        gen = torch.Generator().manual_seed(SEED + 8)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=gen)
+                   for n in lens]
+        out = {}
+        for name in ("fused", "dispatch"):
+            eng = ServeEngine(cfg, params, batch_slots=2, max_len=32,
+                              seed=SEED, device=device,
+                              engine="jit" if name == "fused" else
+                              "dispatch",
+                              dispatch_kwargs=None if name == "fused"
+                              else dict(dk))
+            reqs = [Request(i, p, budget) for i, p in enumerate(prompts)]
+            pending = list(reqs)
+            reset_counts(kernels)
+            for _ in range(steps):
+                while pending and eng.admit(pending[0]):
+                    pending.pop(0)
+                eng.step()
+            torch.cuda.synchronize()
+            launches = {k: kern.launches for k, kern in kernels.items()}
+            if name == "dispatch":
+                for k in total:
+                    total[k] += launches[k]
+            out[name] = [r.out_tokens for r in reqs]
+        log(f"  {cfg.name} REDUCED ({cfg.quant or cfg.dtype}): dispatch "
+            f"tokens {out['dispatch']}; launches {launches}")
+        if out["dispatch"] != out["fused"]:
+            raise AssertionError(f"{cfg.name}: dispatch tokens "
+                                 f"{out['dispatch']}, fused {out['fused']}")
+        extra = {k for k, n in launches.items() if n} - {
+            "decode_attention", "flash_attention"}
+        if extra or not launches["decode_attention"] \
+                or not launches["flash_attention"]:
+            raise AssertionError(f"{cfg.name}: dispatch launches {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2607,6 +3104,19 @@ def main() -> int:
     suitability_entry_point(kernels)
     decode_step_census("granite-3-8b", served["decode_ms_per_step"])
     decode_step_census("qwen2-moe-a2.7b", moe_decode_ms["bf16"])
+    torch.cuda.empty_cache()
+
+    log("phase 14: the planner-routed path: mixed_pipeline through "
+        "runtime.execute; granite-3-8b through ServeEngine(engine="
+        "'dispatch'); REDUCED mixtral-8x7b and starcoder2-7b")
+    launches14 = {name: 0 for name in kernels}
+    mixed_runtime(kernels, launches14)
+    dispatch_f32_check(ops, ref, kernels, launches14)
+    torch.cuda.empty_cache()
+    dispatch_serve(ops, ref, kernels, launches14, served)
+    torch.cuda.empty_cache()
+    dispatch_reduced(kernels, launches14)
+    log(f"  launches on the planner-routed path (phase 14): {launches14}")
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
@@ -2652,6 +3162,7 @@ def main() -> int:
             "replaces": replaces[name], "launches": launches[name],
             "prim_launches": prim_path[name],
             "moe_swa_launches": moe_swa[name],
+            "dispatch_launches": launches14[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -602,8 +602,11 @@ def _cost(u: Unit, unit_of: dict) -> None:
         f, d = _count(op, counts)
         u.flops += f
         u.dot_flops += d
+        width = _product_width(op)
         for v in op.ins:
             src, b = _read_bytes(v)
+            if width and not src.dtype.is_floating_point and b:
+                b = max(b, float(min(v.numel, src.numel) * width))
             p = src.producer
             if p is not None and unit_of.get(p) is u:
                 continue
@@ -628,6 +631,23 @@ def _cost(u: Unit, unit_of: dict) -> None:
     u.out_bytes = out
     u.counts = dict(counts)
     u.preds = list(preds.values())
+
+
+def _product_width(op: Op) -> int:
+    """Bytes per element an integer product reads its operands at: its
+    multiply class's. An operand stored narrower is widened before the
+    product (the reference's explicit `astype(int32)` ahead of a dot,
+    which XLA materializes), unless every factor shares that narrow
+    class (int8 x int8 into an int32 accumulator reads int8). 0 for
+    float products and other ops."""
+    if op.kind == "matmul":
+        cls = _mul_class(_matmul_operands(op), dtype_class(op.outs[0].dtype))
+    elif op.kind == "contraction-product":
+        total = op.outs[0].consumers[0]
+        cls = _mul_class(op.ins, dtype_class(total.outs[0].dtype))
+    else:
+        return 0
+    return {"int8": 1, "int32": 4, "int64": 8}.get(cls, 0)
 
 
 def _search_steps(sorted_seq: Value) -> int:

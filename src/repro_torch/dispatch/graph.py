@@ -265,7 +265,15 @@ def node_from_fn(name: str, fn: Callable, *example_args,
     """Trace `fn` on example args (tensors on any device, or fake ones —
     nothing runs on the card) and cost it as one OpNode via the census;
     `out_bytes` counts the bytes of every tensor `fn` returns."""
-    prog = census.trace_program(fn, *example_args)
+    return node_from_program(name, census.trace_program(fn, *example_args),
+                             kind=kind, exchange_bytes=exchange_bytes)
+
+
+def node_from_program(name: str, prog: census.Program, *,
+                      kind: str = "stage",
+                      exchange_bytes: float = 0.0) -> OpNode:
+    """`node_from_fn` of an already recorded program (`census.
+    trace_program`), for callers that also read its outputs' shapes."""
     analysis = census.analyze(prog)
     return OpNode(
         name=name, kind=kind,

@@ -7,8 +7,11 @@
 // q (B, Sq, H, hd), k/v (B, Skv, KVH, hd) directly through strides; a query
 // head h reads KV head h / (H / KVH), so nothing is repeated or copied. The
 // masks are those of _flash_kernel: causal, window, and keys past Skv (the
-// kernel masks its own ragged edges); query and key positions both start
-// at 0, as a prefill into a fresh cache has them.
+// kernel masks its own ragged edges). Key positions start at 0; query row r
+// sits at position q_off + r (q_off >= 0): 0 for a prefill into a fresh
+// cache, the chunk's distance from its first key for a later chunk of a
+// chunked prefill (serve/dispatch_engine.py), whose keys are the prompt's
+// rows up to the chunk's end.
 //
 // Bound on the H100: operations. A causal prefill of S tokens does about
 // 2 * S^2 * hd flops per head against 4 * S * hd bytes of q/k/v/out, far
@@ -54,11 +57,12 @@
 // Both: key tiles that are wholly causally dead or outside the window are
 // never loaded, and query tiles run latest first, so the longest causal
 // rows start first. A query row with no unmasked key (window > 0 and
-// q_pos >= Skv + window - 1, causal or not) gets what the plain version
+// q_off + r >= Skv + window - 1, causal or not) gets what the plain version
 // gives it: every score is -1e30, the softmax is uniform, so the row is the
 // f32 mean of V over keys [0, Skv), cast to q's type. The main kernels skip
 // those rows (and whole query tiles of them), and a second small kernel,
-// launched only when such rows exist, writes them.
+// launched only when such rows exist, writes them. Rows are indices from 0,
+// positions (masks, tile ranges) are q_off + row.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,7 +110,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
              int H, int KVH, int hd, Strides qs, Strides ks, Strides vs,
-             int causal, int window, float scale) {
+             int causal, int window, int q_off, float scale) {
   constexpr int CD = HDM / 16;   // output columns per thread
   extern __shared__ float smem[];
   const int ld = hd + 1;
@@ -119,8 +123,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KVH);
   const int q_lo = qt * BQ;
+  const int p_lo = q_off + q_lo;   // position of the tile's first row
   // rows from q_empty on have no unmasked key: empty_rows_kernel writes them
-  const long long q_empty = window > 0 ? (long long)Skv + window - 1 : Sq;
+  const long long q_empty = window > 0 ? (long long)Skv + window - 1 - q_off : Sq;
   if (q_lo >= q_empty) return;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
 
@@ -135,9 +140,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   int kt_end = (Skv + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, (q_lo + BQ - 1) / BK + 1);
+  if (causal) kt_end = min(kt_end, (p_lo + BQ - 1) / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / BK;
+  if (window > 0 && p_lo - window + 1 > 0) kt_begin = (p_lo - window + 1) / BK;
 
   float m_i[4], l_i[4], acc[4][CD];
 #pragma unroll
@@ -179,7 +184,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int qpos = q_lo + ty + 16 * i;
+      const int qpos = p_lo + ty + 16 * i;
       bool ok[4];
       float mx = -1e30f;
 #pragma unroll
@@ -233,8 +238,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// Rows q_pos in [q_empty, Sq) of head h, batch b: the f32 mean of V over
-// keys [0, Skv), one thread per column, summed in key order.
+// Rows [q_empty, Sq) of head h, batch b: the f32 mean of V over keys
+// [0, Skv), one thread per column, summed in key order.
 template <typename T>
 __global__ void empty_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
                                   int Sq, int Skv, int H, int KVH, int hd,
@@ -350,7 +355,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
                  int KVH, Strides qs, Strides ks, Strides vs, int causal,
-                 int window, float scale_log2, int vec) {
+                 int window, int q_off, float scale_log2, int vec) {
   constexpr int KS = HD / 16;             // 16-wide steps over hd
   constexpr int DN = HD / 8;              // 8-wide output column tiles
   constexpr int kLd = HD + 8;             // 16 bytes of padding a row
@@ -365,8 +370,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KVH);
   const int q_lo = qt * BQ;
+  const int p_lo = q_off + q_lo;   // position of the tile's first row
   // rows from q_empty on have no unmasked key: empty_rows_kernel writes them
-  const long long q_empty = window > 0 ? (long long)Skv + window - 1 : Sq;
+  const long long q_empty = window > 0 ? (long long)Skv + window - 1 - q_off : Sq;
   if (q_lo >= q_empty) return;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int gq = lane >> 2, tq = lane & 3;   // fragment row group, lane in quad
@@ -376,20 +382,23 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* vb = v + b * vs.b + kh * vs.h;
 
   int kt_end = (Skv + BK - 1) / BK;
-  if (causal) kt_end = min(kt_end, (q_lo + BQ - 1) / BK + 1);
+  if (causal) kt_end = min(kt_end, (p_lo + BQ - 1) / BK + 1);
   int kt_begin = 0;
-  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / BK;
+  if (window > 0 && p_lo - window + 1 > 0) kt_begin = (p_lo - window + 1) / BK;
 
   load_rows<HD>(sQ, qb, qs.s, q_lo, Sq, vec);
   load_rows<HD>(sK, kb, ks.s, kt_begin * BK, Skv, vec);
   load_rows<HD>(sV, vb, vs.s, kt_begin * BK, Skv, vec);
   cp_async_commit();
 
-  // this warp's 16 query rows: row0 holds fragment rows 0-7, row1 8-15
-  const int wq_lo = q_lo + warp * 16, wq_hi = wq_lo + 15;
+  // this warp's 16 query rows: row0 holds fragment rows 0-7, row1 8-15;
+  // wp_lo/wp_hi and pos0/pos1 are their positions
+  const int wq_lo = q_lo + warp * 16;
+  const int wp_lo = q_off + wq_lo, wp_hi = wp_lo + 15;
   const int row0 = wq_lo + gq, row1 = row0 + 8;
+  const int pos0 = q_off + row0, pos1 = pos0 + 8;
   // per-lane ldmatrix offsets (elements) into Q, K and V tiles
-  const int q_off = (warp * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
+  const int qf_off = (warp * 16 + (lane & 15)) * kLd + (lane >> 4) * 8;
   const int k_off = ((lane & 7) + (lane >> 4) * 8) * kLd + ((lane >> 3) & 1) * 8;
   const int v_off = (lane & 15) * kLd + (lane >> 4) * 8;
   unsigned qf[kQInRegs ? KS : 1][4];
@@ -414,12 +423,12 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     if (kQInRegs && kt == kt_begin) {
 #pragma unroll
-      for (int s = 0; s < KS; ++s) ldmatrix_x4(qf[kQInRegs ? s : 0], sQ + q_off + s * 16);
+      for (int s = 0; s < KS; ++s) ldmatrix_x4(qf[kQInRegs ? s : 0], sQ + qf_off + s * 16);
     }
     const int k_lo = kt * BK;
     // a warp whose 16 rows see no key of this tile skips it
-    const bool live = !(causal && wq_hi < k_lo) &&
-                      !(window > 0 && wq_lo - (k_lo + BK - 1) >= window);
+    const bool live = !(causal && wp_hi < k_lo) &&
+                      !(window > 0 && wp_lo - (k_lo + BK - 1) >= window);
     if (!live) continue;
     const __nv_bfloat16* sKt = sK + buf * BK * kLd;
     const __nv_bfloat16* sVt = sV + buf * BK * kLd;
@@ -440,7 +449,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) a[e] = qf[kQInRegs ? s : 0][e];
       } else {
-        ldmatrix_x4(a, sQ + q_off + s * 16);
+        ldmatrix_x4(a, sQ + qf_off + s * 16);
       }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {   // keys 16j .. 16j + 15
@@ -453,18 +462,18 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // mask on the fragment where the tile crosses an edge: masked raw
     // scores are -inf; m starts at -1e30, so exp2 gives them 0
-    const bool edge = k_lo + BK > Skv || (causal && k_lo + BK - 1 > wq_lo) ||
-                      (window > 0 && wq_hi - k_lo >= window);
+    const bool edge = k_lo + BK > Skv || (causal && k_lo + BK - 1 > wp_lo) ||
+                      (window > 0 && wp_hi - k_lo >= window);
     float mx[2] = {m_r[0], m_r[1]};
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (edge) {
-          const int row = e < 2 ? row0 : row1;
+          const int pos = e < 2 ? pos0 : pos1;
           const int key = k_lo + nt * 8 + 2 * tq + (e & 1);
-          const bool ok = key < Skv && (!causal || row >= key) &&
-                          (window <= 0 || row - key < window);
+          const bool ok = key < Skv && (!causal || pos >= key) &&
+                          (window <= 0 || pos - key < window);
           if (!ok) sc[nt][e] = __int_as_float(0xff800000);   // -inf
         }
         mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
@@ -542,7 +551,7 @@ template <int HD>
 int launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
                const void* v, void* o, int Sq, int Skv, int H, int KVH,
                Strides qs, Strides ks, Strides vs, int causal, int window,
-               int vec) {
+               int q_off, int vec) {
   constexpr size_t smem = mma_smem_bytes(HD);
   static bool configured = false;
   if (!configured) {
@@ -560,7 +569,7 @@ int launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
   flash_mma_kernel<HD><<<grid, kMmaThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, H, KVH, qs, ks, vs, causal, window, scale_log2, vec);
+      Skv, H, KVH, qs, ks, vs, causal, window, q_off, scale_log2, vec);
   return 0;
 }
 
@@ -569,11 +578,11 @@ template <int HD>
 int launch_mma_hd(int hd, dim3 grid, cudaStream_t st, const void* q,
                   const void* k, const void* v, void* o, int Sq, int Skv,
                   int H, int KVH, Strides qs, Strides ks, Strides vs,
-                  int causal, int window, int vec) {
+                  int causal, int window, int q_off, int vec) {
   if (hd == HD)
-    return launch_mma<HD>(grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, vec);
+    return launch_mma<HD>(grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
   if constexpr (HD > 16)
-    return launch_mma_hd<HD - 16>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, vec);
+    return launch_mma_hd<HD - 16>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -585,7 +594,7 @@ template <typename T, int HDM>
 int launch(dim3 grid, size_t smem, cudaStream_t st, const void* q,
            const void* k, const void* v, void* o, int Sq, int Skv, int H,
            int KVH, int hd, Strides qs, Strides ks, Strides vs, int causal,
-           int window, float scale) {
+           int window, int q_off, float scale) {
   cudaError_t e = cudaFuncSetAttribute(
       flash_kernel<T, HDM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -593,7 +602,7 @@ int launch(dim3 grid, size_t smem, cudaStream_t st, const void* q,
   flash_kernel<T, HDM><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KVH, hd, qs,
-      ks, vs, causal, window, scale);
+      ks, vs, causal, window, q_off, scale);
   return 0;
 }
 
@@ -601,12 +610,12 @@ template <typename T>
 int launch_hd(dim3 grid, size_t smem, cudaStream_t st, const void* q,
               const void* k, const void* v, void* o, int Sq, int Skv, int H,
               int KVH, int hd, Strides qs, Strides ks, Strides vs, int causal,
-              int window, float scale) {
+              int window, int q_off, float scale) {
   if (hd <= 64)
-    return launch<T, 64>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
+    return launch<T, 64>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
   if (hd <= 128)
-    return launch<T, 128>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
-  return launch<T, 256>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
+    return launch<T, 128>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
+  return launch<T, 256>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
 }
 
 }  // namespace
@@ -617,7 +626,8 @@ extern "C" const char* error_string(int code) {
 
 // q: (B, Sq, H, hd), k/v: (B, Skv, KVH, hd), each with unit stride on hd and
 // the given (batch, position, head) strides in elements; o: contiguous
-// (B, Sq, H, hd). window 0 = no window. is_bf16: 1 for bf16, 0 for f32.
+// (B, Sq, H, hd). window 0 = no window. q_off >= 0: the position of query
+// row 0 counted from key 0. is_bf16: 1 for bf16, 0 for f32.
 // route: 1 = tensor cores (bf16, hd % 16 == 0), 0 = CUDA cores; a route the
 // inputs do not fit is refused, never replaced by the other.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
@@ -626,8 +636,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
                                long long v_sh, int causal, int window,
-                               int is_bf16, int route, void* stream) {
+                               int q_off, int is_bf16, int route,
+                               void* stream) {
   if (B < 1 || Sq < 1 || Skv < 1 || KVH < 1 || H % KVH != 0 || hd < 1 ||
+      q_off < 0 || window < 0 ||
       hd > 256 || H > 65535 || B > 65535 || route < 0 || route > 1 ||
       (route == 1 && (!is_bf16 || hd % 16 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -641,19 +653,21 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     int vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                reinterpret_cast<uintptr_t>(v)) % 16 == 0;
     for (long long s : strides) vec = vec && s % 8 == 0;
-    rc = launch_mma_hd<256>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, vec);
+    rc = launch_mma_hd<256>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
   } else {
     const size_t smem = smem_bytes(hd);
     const float scale = 1.0f / sqrtf(static_cast<float>(hd));
     rc = is_bf16
-        ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale)
-        : launch_hd<float>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, scale);
+        ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale)
+        : launch_hd<float>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
   }
   if (rc != 0) return rc;
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (window > 0 && (long long)Sq > (long long)Skv + window - 1) {
-    const int q_empty = Skv + window - 1;
+  // rows from q_empty on have no unmasked key (all of them if it is <= 0)
+  const long long q_empty_ll = (long long)Skv + window - 1 - q_off;
+  if (window > 0 && (long long)Sq > q_empty_ll) {
+    const int q_empty = q_empty_ll > 0 ? static_cast<int>(q_empty_ll) : 0;
     const dim3 rows_grid(H, B);
     const int threads = ((hd + 31) / 32) * 32;
     if (is_bf16)

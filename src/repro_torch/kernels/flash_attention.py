@@ -23,7 +23,7 @@ from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("flash_attention", "flash_attention",
-                    [_P, _P, _P, _P] + [_I] * 6 + [_L] * 9 + [_I] * 4 + [_P])
+                    [_P, _P, _P, _P] + [_I] * 6 + [_L] * 9 + [_I] * 5 + [_P])
 MAX_HEAD_DIM = 256
 ROUTES = ("cuda_core", "tensor_core")     # the kernel's route code is the index
 
@@ -40,10 +40,12 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0,
+                    q_offset: int = 0) -> torch.Tensor:
     """Launch the kernel. q: (B,Sq,H,hd); k, v: (B,Skv,KVH,hd), each with
     unit stride on hd (other strides are free); one CUDA device; f32 or
-    bf16. Returns a contiguous (B,Sq,H,hd) in q's dtype."""
+    bf16. Query row r sits at position q_offset + r, key j at j.
+    Returns a contiguous (B,Sq,H,hd) in q's dtype."""
     tensors = (q, k, v)
     check_cuda("flash_attention", *tensors, contiguous=False)
     if any(t.stride(-1) != 1 for t in tensors):
@@ -58,6 +60,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     r = route(q.dtype, hd)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   b, sq, skv, h, kvh, hd, *strides, int(causal), int(window),
-                  int(q.dtype == torch.bfloat16), ROUTES.index(r),
+                  int(q_offset), int(q.dtype == torch.bfloat16),
+                  ROUTES.index(r),
                   torch.cuda.current_stream(q.device).cuda_stream, route=r)
     return out

@@ -67,9 +67,11 @@ def decode_attention(q, k, v, lengths):
     return _da.decode_attention(q, k, v, lengths)
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """q: (B, Sq, H, hd); k, v: (B, Skv, KVH, hd). Causal and window masks
-    count query and key positions from 0; window 0 means none."""
+    count key positions from 0 and query positions from `q_offset` >= 0
+    (a later chunk of a chunked prefill); window 0 means none."""
     _check_dtypes("flash_attention", q, k, v)
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"flash_attention: want q (B,Sq,H,hd), k = v "
@@ -81,9 +83,12 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0):
                          f"match k/v {tuple(k.shape)}")
     if window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset must be >= 0, got "
+                         f"{q_offset}")
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal, window)
-    return _fa.flash_attention(q, k, v, causal, window)
+        return ref.flash_attention(q, k, v, causal, window, q_offset)
+    return _fa.flash_attention(q, k, v, causal, window, q_offset)
 
 
 def _check_vector(name, dtypes, *tensors):

@@ -44,16 +44,17 @@ def decode_attention(q, k, v, lengths):
     return o.reshape(b, h, hd).to(q.dtype)
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0):
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0):
     """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) — plain softmax attention with
-    query and key positions both counted from 0."""
+    key positions counted from 0 and query positions from `q_offset`."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if kvh != h:
         k = torch.repeat_interleave(k, h // kvh, dim=2)
         v = torch.repeat_interleave(v, h // kvh, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) / math.sqrt(hd)
-    q_pos = torch.arange(sq, device=q.device)[:, None]
+    q_pos = torch.arange(q_offset, q_offset + sq, device=q.device)[:, None]
     k_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:

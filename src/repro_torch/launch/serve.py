@@ -5,6 +5,9 @@
 
 Weights are random, drawn from `--seed` on the device. `--device`
 defaults to the card; `--device cpu --reduced` runs the plain path.
+`--engine dispatch` serves through the offload planner's plans
+(`serve.dispatch_engine`: decode over the decode DAG, prefill chunked by
+`--prefill-chunk` over the prefill DAG) instead of the fused forward.
 `--profile` runs the workload under `torch.profiler` and prints the ops
 that took the most device time and the device's busy share of the wall.
 """
@@ -36,15 +39,32 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    ap.add_argument("--engine", choices=("jit", "dispatch"), default="jit",
+                    help="serving backend: the fused forward, or the "
+                         "planner-routed dispatch steps for both prefill "
+                         "and decode (dense and routed-MoE attention "
+                         "decoders)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="dispatch engine: tokens per prefill chunk "
+                         "(default: min(512, max_len))")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch, reduced=args.reduced)
     dev = resolve_device(args.device)
     params = init_params(args.seed, cfg, dev)
+    dispatch_kwargs = ({"prefill_chunk": args.prefill_chunk}
+                       if args.engine == "dispatch" else None)
     engine = ServeEngine(cfg, params, batch_slots=args.slots,
                          max_len=args.max_len, temperature=args.temperature,
-                         seed=args.seed, device=dev)
+                         seed=args.seed, device=dev, engine=args.engine,
+                         dispatch_kwargs=dispatch_kwargs)
+    if engine.dispatch_plan is not None:
+        for what, p in (("decode", engine.dispatch_plan),
+                        ("prefill", engine.prefill_plan)):
+            devs = sorted(set(p.assignment.values()))
+            print(f"{what} plan: {p.method}, {len(p.assignment)} stages "
+                  f"on {devs}, modelled {p.total_s * 1e3:.3f} ms")
     gen = torch.Generator().manual_seed(args.seed + 1)
     reqs = []
     for i in range(args.requests):

@@ -178,9 +178,12 @@ def mlp_forward(x, p, cfg: ModelConfig):
 
 CAPACITY_FACTOR = 1.25
 # torch._int_mm on CUDA (cuBLASLt int8 -> int32) takes more than 16 rows
-# and K and N multiples of 8
+# and K and N multiples of 8; at K = 64 cuBLASLt on the H100 refuses most
+# row counts (CUBLAS_STATUS_NOT_SUPPORTED), so a contraction shorter than
+# 128 is padded with zeros to 128 (exact)
 INT_MM_MIN_ROWS = 17
 INT_MM_MULTIPLE = 8
+INT_MM_MIN_K = 128
 
 
 #: the expert contractions on the card: "int8" counts each torch._int_mm
@@ -279,8 +282,9 @@ def int8_expert_matmul(xq, wq):
     on their order. On the CPU an int32 einsum; on the card one
     `torch._int_mm` (cuBLASLt, int8 in, int32 accumulator) per expert,
     the B*C rows padded with zero rows to its minimum, whose results are
-    dropped. Shapes outside `_int_mm`'s limits raise: there is no float
-    route for int8 experts."""
+    dropped, and a contraction shorter than INT_MM_MIN_K padded with zero
+    columns and rows. Shapes outside `_int_mm`'s limits raise: there is
+    no float route for int8 experts."""
     if xq.dtype != torch.int8 or wq.dtype != torch.int8:
         raise ValueError(f"int8_expert_matmul: want int8 operands, got "
                          f"{xq.dtype}, {wq.dtype}")
@@ -300,6 +304,9 @@ def int8_expert_matmul(xq, wq):
     xe = xq.permute(1, 0, 2, 3).reshape(e, rows, k)
     if m > rows:
         xe = F.pad(xe, (0, 0, 0, m - rows))
+    if k < INT_MM_MIN_K:
+        xe = F.pad(xe, (0, INT_MM_MIN_K - k))
+        wq = F.pad(wq, (0, 0, 0, INT_MM_MIN_K - k))
     out = torch.empty((e, m, n), dtype=torch.int32, device=xq.device)
     for i in range(e):
         torch._int_mm(xe[i], wq[i], out=out[i])

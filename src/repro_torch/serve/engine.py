@@ -1,8 +1,12 @@
 """Serving: one-slot prefill per arrival and batched decode steps over a
 slot-based KV cache (continuous batching).
 
-Counterpart of `repro.serve.engine` with its fused engine
-(`engine="jit"`): requests of different lengths share one batched cache;
+Counterpart of `repro.serve.engine`. Two backends share the loop: the
+fused steps (`engine="jit"`, one forward a step) and the planner-routed
+steps (`engine="dispatch"`, `serve.dispatch_engine`): decode over the
+decode DAG, prefill chunked over the prefill DAG, both through the plan
+executor's schedule timeline (DESIGN.md §9-§11), with the same greedy
+tokens. Requests of different lengths share one batched cache;
 each slot keeps its own position, passed to the model as `positions`, so
 one decode step advances every live slot by one token whatever the skew.
 Greedy sampling by default; temperature sampling draws from the engine's
@@ -55,11 +59,27 @@ class ServeEngine:
     silent fall back to the CPU. Counters: `n_prefills`, `n_decode_steps`
     (decode forward calls), and the host seconds spent in each
     (`prefill_s`, `decode_s`, each ending in the step's one host sync).
+
+    `engine="dispatch"` routes both phases through the offload planner.
+    `dispatch_kwargs` go to `DispatchDecodeStep` (`grid`, `devices`,
+    `kv_home`, `objective`, `expert_shards`, `force_assignment`), except
+    the `prefill_*` keys, which configure `DispatchPrefillStep`:
+    `prefill_chunk`, `prefill_objective`, `prefill_force_assignment`,
+    and `prefill_engine="jit"`, which keeps
+    prefill on the fused path. `dispatch_plan` / `prefill_plan` are the
+    planners' plans (None on the fused path).
     """
 
     def __init__(self, cfg: ModelConfig, params, *, batch_slots: int,
                  max_len: int, temperature: float = 0.0,
-                 eos_id: int | None = None, seed: int = 0, device=None):
+                 eos_id: int | None = None, seed: int = 0, device=None,
+                 engine: str = "jit", dispatch_kwargs: dict | None = None):
+        if engine not in ("jit", "dispatch"):
+            raise ValueError(f"engine must be 'jit' or 'dispatch', "
+                             f"got {engine!r}")
+        if engine == "dispatch":
+            from .dispatch_engine import _check_dispatchable
+            _check_dispatchable(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -88,10 +108,50 @@ class ServeEngine:
                                     device=self.device)
         self.n_prefills = self.n_decode_steps = 0
         self.prefill_s = self.decode_s = 0.0
+        self.engine = engine
+        self.tracer = None               # dispatch.trace.Trace | None
+        self._step_no = 0
+        self.dispatch_plan = self.prefill_plan = None
+        self._dispatch_decode = self._dispatch_prefill = None
+        if engine == "dispatch":
+            self._init_dispatch(dict(dispatch_kwargs or {}))
+
+    def _init_dispatch(self, dk: dict) -> None:
+        """Plan both serving phases (serve.dispatch_engine): decode over
+        the decode DAG, prefill chunked over the prefill DAG; PIM stages
+        run as BankGrid phases, host stages as plain calls."""
+        from ..core.bank_parallel import BankGrid
+        from .dispatch_engine import DispatchDecodeStep, DispatchPrefillStep
+        pk = {"chunk": dk.pop("prefill_chunk", None),
+              "objective": dk.pop("prefill_objective", "overlapped"),
+              "force_assignment": dk.pop("prefill_force_assignment", None)}
+        # `prefill_engine="jit"` keeps prefill on the fused path: the
+        # dispatch prefill's chunked attention is not bitwise the fused
+        # whole-prompt call, so decode-only bitwise gates prefill fused
+        prefill_engine = dk.pop("prefill_engine", "dispatch")
+        if prefill_engine not in ("dispatch", "jit"):
+            raise ValueError(f"prefill_engine must be 'dispatch' or "
+                             f"'jit', got {prefill_engine!r}")
+        dk.setdefault("grid", BankGrid(1, self.device))
+        self._dispatch_decode = DispatchDecodeStep(
+            self.cfg, batch_slots=self.n_slots, max_len=self.max_len,
+            temperature=self.temperature, **dk)
+        self.dispatch_plan = self._dispatch_decode.plan
+        if prefill_engine == "dispatch":
+            self._dispatch_prefill = DispatchPrefillStep(
+                self.cfg, max_len=self.max_len, grid=dk["grid"],
+                devices=dk.get("devices", ("xeon", "upmem_2556")),
+                kv_home=dk.get("kv_home", "upmem_2556"), **pk)
+            self.prefill_plan = self._dispatch_prefill.plan
 
     # ------------------------------------------------------------- #
     @torch.no_grad()
     def _decode_step(self):
+        if self._dispatch_decode is not None:
+            self.last_tok, self.cache, self.slot_pos = self._dispatch_decode(
+                self.params, self.cache, self.last_tok, self.slot_pos,
+                self.live_mask, self.generator)
+            return
         positions = self.slot_pos[:, None]
         # index drives slot addressing; per-slot validity is the per-row
         # positions array (cache index is the max position across slots)
@@ -109,6 +169,9 @@ class ServeEngine:
         """Prefill one slot: run the single sequence through a one-slot
         cache, then copy its KV rows into row `slot` of the batched cache.
         Returns the last position's logits."""
+        if self._dispatch_prefill is not None:
+            return self._dispatch_prefill(self.params, self.cache, tokens,
+                                          slot)
         one = init_cache(self.cfg, 1, self.max_len, self.device)
         logits, one, _ = forward(self.params, self.cfg, tokens=tokens[None],
                                  cache=one)
@@ -119,6 +182,28 @@ class ServeEngine:
         return logits[0, -1]
 
     # ------------------------------------------------------------- #
+    def attach_tracer(self, tracer) -> None:
+        """Attach a `dispatch.trace.Trace`: the serving loop records one
+        `prefill_step` span per admission (with the slot and prompt
+        length) and one `decode_step` span per batched step (with the live
+        slots and per-slot positions). Under `engine="dispatch"` the
+        tracer also threads through both planner-routed steps into
+        `PlanExecutor.run` (per-node compute spans, channel occupancy) and
+        the FaceCache (compile vs cache-hit). Pass None to detach."""
+        self.tracer = tracer
+        for step in (self._dispatch_decode, self._dispatch_prefill):
+            if step is not None:
+                step.tracer = tracer
+
+    def prefill_splits(self, plen: int) -> list[int]:
+        """Chunk lengths a `plen`-token prompt prefills in: the dispatch
+        prefill step's chunk grid when that path is active, one fused
+        chunk otherwise — the chunk-splits component of the batch
+        signature a plan cache keys prefill pricing by."""
+        if self._dispatch_prefill is not None:
+            return self._dispatch_prefill.chunk_splits(plen)
+        return [int(plen)]
+
     @property
     def n_free(self) -> int:
         """Number of free (admittable) cache slots right now."""
@@ -147,10 +232,14 @@ class ServeEngine:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
         t0 = time.perf_counter()
+        tt0 = self.tracer.now() if self.tracer is not None else 0.0
         prompt = req.prompt.to(self.device, torch.int64)
         logits = self._prefill_one(prompt, slot)
         first = int(sample(logits, self.generator, self.temperature))
         req.first_token_at = time.perf_counter()
+        if self.tracer is not None:
+            self.tracer.add("prefill_step", f"req{req.rid}", "engine", tt0,
+                            slot=slot, prompt_len=plen)
         self.n_prefills += 1
         self.prefill_s += req.first_token_at - t0
         req.out_tokens.append(first)
@@ -170,11 +259,19 @@ class ServeEngine:
         if not any(self.slot_live):
             return 0
         t0 = time.perf_counter()
+        tt0 = self.tracer.now() if self.tracer is not None else 0.0
         self._decode_step()
         # ONE host sync per step: tokens and positions fetched together
         toks, pos = torch.stack([self.last_tok[:, 0], self.slot_pos]).tolist()
         self.n_decode_steps += 1
         self.decode_s += time.perf_counter() - t0
+        if self.tracer is not None:      # the sync above: span = real step
+            self._step_no += 1
+            self.tracer.add(
+                "decode_step", f"step{self._step_no}", "engine", tt0,
+                n_live=sum(self.slot_live),
+                slots=[s for s, lv in enumerate(self.slot_live) if lv],
+                positions=[p for p, lv in zip(pos, self.slot_live) if lv])
         for slot, req in enumerate(self.slot_req):
             if req is None or not self.slot_live[slot]:
                 continue

@@ -21,6 +21,7 @@ import math
 import os
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -34,6 +35,7 @@ from repro_torch import bridge
 from repro_torch.configs import ARCHS, REDUCED
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -195,47 +197,71 @@ def test_split_count_rule(b, kvh, w):
 # flash: the tensor-core route's numerics
 # --------------------------------------------------------------------- #
 
-def tensor_core_flash(q, k, v, causal=True, window=0):
-    """What the tensor-core kernel computes for bf16 q/k/v: per 64-key
-    tile, raw scores S = Q.K^T in f32 (products of bf16 values are exact
-    in f32), masks, the running max m of raw scores, p = exp2(S c - m c)
-    with c = log2(e) / sqrt(hd) in f32, l += sum p in f32, P split into
-    hi = bf16(P) and lo = bf16(P - hi), O = O alpha + hi.V + lo.V in f32;
-    O / l in bf16. Rows with no
-    unmasked key get the f32 mean of V, as the plain version gives."""
+def tensor_core_flash(q, k, v, causal=True, window=0, q_offset=0):
+    """What the tensor-core kernel computes for bf16 q/k/v, walked as the
+    kernel walks it: query tiles of 64 rows, each over its key-tile range
+    [kt_begin, kt_end) (the tiles its positions q_offset + row can see),
+    warps of 16 rows skipping the tiles none of their rows sees. Per
+    64-key tile: raw scores S = Q.K^T in f32 (products of bf16 values are
+    exact in f32), masks, the running max m of raw scores, p = exp2(S c -
+    m c) with c = log2(e) / sqrt(hd) in f32, l += sum p in f32, P split
+    into hi = bf16(P) and lo = bf16(P - hi), O = O alpha + hi.V + lo.V in
+    f32; O / l in bf16. Rows from q_empty = Skv + window - 1 - q_offset
+    on see no key: the main kernel skips them (whole tiles too) and the
+    empty-row kernel writes the f32 mean of V, as the plain version gives
+    them."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(h // kvh, dim=2).transpose(1, 2)
     vf = v.float().repeat_interleave(h // kvh, dim=2).transpose(1, 2)
     qf = q.float().transpose(1, 2)                    # (B, H, Sq, hd)
     c = torch.tensor(LOG2E / math.sqrt(hd), dtype=torch.float32)
-    m = torch.full((b, h, sq), EMPTY_M)
-    l = torch.zeros(b, h, sq)
-    acc = torch.zeros(b, h, sq, hd)
-    qp = torch.arange(sq)[:, None]
-    for k_lo in range(0, skv, BK):
-        kp = torch.arange(k_lo, min(k_lo + BK, skv))[None, :]
-        s = qf @ kf[:, :, k_lo:k_lo + BK].transpose(-1, -2)
-        ok = torch.ones(sq, kp.shape[1], dtype=torch.bool)
+    out = torch.full((b, h, sq, hd), math.nan)
+    q_empty = skv + window - 1 - q_offset if window else sq
+    for q_lo in range(0, sq, BQ):
+        if q_lo >= q_empty:
+            continue
+        p_lo = q_offset + q_lo
+        kt_end = -(-skv // BK)
         if causal:
-            ok &= qp >= kp
-        if window:
-            ok &= qp - kp < window
-        s = s.masked_fill(~ok, -math.inf)
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp2((m - m_new) * c)
-        p = torch.exp2(s * c - (m_new * c)[..., None])
-        l = l * alpha + p.sum(-1)
-        hi = p.bfloat16().float()
-        lo = (p - hi).bfloat16().float()
-        vt = vf[:, :, k_lo:k_lo + BK]
-        acc = acc * alpha[..., None] + hi @ vt + lo @ vt
-        m = m_new
-    out = (acc / l.clamp_min(1e-30)[..., None]).transpose(1, 2)
-    if window and sq > skv + window - 1:
+            kt_end = min(kt_end, (p_lo + BQ - 1) // BK + 1)
+        kt_begin = (p_lo - window + 1) // BK \
+            if window and p_lo - window + 1 > 0 else 0
+        for wq_lo in range(q_lo, min(q_lo + BQ, sq), 16):
+            rows = slice(wq_lo, min(wq_lo + 16, sq))
+            wp_lo = q_offset + wq_lo
+            qp = torch.arange(wp_lo, wp_lo + 16)[:rows.stop - wq_lo, None]
+            m = torch.full((b, h, qp.shape[0]), EMPTY_M)
+            l = torch.zeros(b, h, qp.shape[0])
+            acc = torch.zeros(b, h, qp.shape[0], hd)
+            for kt in range(kt_begin, kt_end):
+                k_lo = kt * BK
+                if (causal and wp_lo + 15 < k_lo) or \
+                        (window and wp_lo - (k_lo + BK - 1) >= window):
+                    continue                  # no row of the warp sees it
+                kp = torch.arange(k_lo, min(k_lo + BK, skv))[None, :]
+                s = qf[:, :, rows] @ kf[:, :, k_lo:k_lo + BK].transpose(-1, -2)
+                ok = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool)
+                if causal:
+                    ok &= qp >= kp
+                if window:
+                    ok &= qp - kp < window
+                s = s.masked_fill(~ok, -math.inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                alpha = torch.exp2((m - m_new) * c)
+                p = torch.exp2(s * c - (m_new * c)[..., None])
+                l = l * alpha + p.sum(-1)
+                hi = p.bfloat16().float()
+                lo = (p - hi).bfloat16().float()
+                vt = vf[:, :, k_lo:k_lo + BK]
+                acc = acc * alpha[..., None] + hi @ vt + lo @ vt
+                m = m_new
+            out[:, :, rows] = acc / l.clamp_min(1e-30)[..., None]
+    if window and sq > q_empty:
         mean = v.float().mean(dim=1).repeat_interleave(h // kvh, dim=1)
-        out[:, skv + window - 1:] = mean[:, None]
-    return out.to(q.dtype)
+        out[:, :, max(q_empty, 0):] = mean[:, :, None]
+    assert not out.isnan().any()                  # every row written
+    return out.transpose(1, 2).to(q.dtype)
 
 
 @pytest.mark.parametrize("b,sq,skv,h,kvh,hd,causal,window", [
@@ -261,6 +287,66 @@ def test_tensor_core_flash_numerics(b, sq, skv, h, kvh, hd, causal, window):
     want = ref.flash_attention(qt, kt, vt, causal, window).float()
     err = (got.float() - want).abs()
     assert (err <= 1e-2 * (1 + want.abs())).all(), float(err.max())
+
+
+def _chunk_attention(q, k, v, q_pos, k_pos, window):
+    """The reference's chunked-prefill attention stage
+    (`DispatchPrefillStep._attn_fn`): causal (and window) masks on the
+    explicit absolute query and key positions."""
+    from repro.serve.dispatch_engine import DispatchPrefillStep
+    stage = types.SimpleNamespace(
+        cfg=types.SimpleNamespace(sliding_window=window))
+    return DispatchPrefillStep._attn_fn(stage, q, k, v, jnp.asarray(q_pos),
+                                        jnp.asarray(k_pos))
+
+
+@pytest.mark.parametrize("sq,skv,h,kvh,hd,window,q_offset", [
+    (64, 192, 4, 2, 64, 0, 128),     # the third 64-token chunk of a prompt
+    (100, 260, 2, 2, 64, 0, 160),    # ragged chunk, causal tile cut mid-tile
+    (40, 100, 4, 2, 32, 50, 60),     # banded prefix: keys start past 0
+    (64, 256, 2, 1, 64, 32, 192),    # window: key tiles 0-1 wholly dead
+    (80, 200, 2, 2, 16, 40, 120),    # window crossing a query-tile edge
+    (24, 16, 4, 2, 16, 8, 20),       # rows 3.. see no key
+    (16, 16, 2, 2, 16, 4, 40),       # no row sees a key: all mean of V
+])
+def test_tensor_core_flash_q_offset(sq, skv, h, kvh, hd, window, q_offset):
+    """A chunk's queries at positions q_offset.. over keys at 0..: the
+    kernel's tile ranges, warp skips and empty-row rule at offsets, held
+    to the port's plain version with `q_offset` and to the reference's
+    chunk attention on the same positions."""
+    (qj, kj, vj), (qt, kt, vt) = _inputs(
+        21, jnp.bfloat16, (1, sq, h, hd), (1, skv, kvh, hd),
+        (1, skv, kvh, hd))
+    got = tensor_core_flash(qt, kt, vt, True, window, q_offset)
+    assert torch.isfinite(got.float()).all()
+    want = ref.flash_attention(qt, kt, vt, True, window, q_offset).float()
+    err = (got.float() - want).abs()
+    assert (err <= 1e-2 * (1 + want.abs())).all(), float(err.max())
+    q_pos = np.arange(q_offset, q_offset + sq, dtype=np.int32)
+    k_pos = np.arange(skv, dtype=np.int32)
+    _close(got, _chunk_attention(qj, kj, vj, q_pos, k_pos, window), 3e-2)
+    # the plain version at f32 against the reference's stage at f32
+    (qj, kj, vj), (qt, kt, vt) = _inputs(
+        22, jnp.float32, (1, sq, h, hd), (1, skv, kvh, hd),
+        (1, skv, kvh, hd))
+    _close(ref.flash_attention(qt, kt, vt, True, window, q_offset),
+           _chunk_attention(qj, kj, vj, q_pos, k_pos, window), 1e-4)
+
+
+def test_flash_q_offset_zero_is_the_default():
+    """q_offset = 0 is the call without it, bit for bit, and a negative
+    offset is refused."""
+    _, (qt, kt, vt) = _inputs(23, jnp.float32, (2, 70, 4, 16),
+                              (2, 70, 2, 16), (2, 70, 2, 16))
+    for window in (0, 9):
+        assert torch.equal(ref.flash_attention(qt, kt, vt, True, window, 0),
+                           ref.flash_attention(qt, kt, vt, True, window))
+        assert torch.equal(tensor_core_flash(qt.bfloat16(), kt.bfloat16(),
+                                             vt.bfloat16(), True, window, 0),
+                           tensor_core_flash(qt.bfloat16(), kt.bfloat16(),
+                                             vt.bfloat16(), True, window))
+    with pytest.raises(ValueError, match="q_offset"):
+        kops.flash_attention(qt, kt, vt, q_offset=-1)
 
 
 # --------------------------------------------------------------------- #

@@ -267,6 +267,37 @@ def test_int8_expert_products_multiply_in_the_int8_band():
     assert ("mul", "int32") not in ops and ("mul", "int32") not in ref
 
 
+@pytest.mark.parametrize("kv", ["int8", "int32"])
+def test_widened_integer_operand_is_read_at_the_product_width(kv):
+    """The int-attention proxy widens its int8 (or int32) cache to int32
+    before an int32 x int32 dot, as `dispatch.workloads._attend` does:
+    XLA materializes the widened operand, so the reference charges the
+    dot's read at 4 bytes an element whatever the storage; the census
+    reads an integer product's operands at its multiply class's width
+    (`census._product_width`), and its bytes equal the reference's. An
+    int8 x int8 product into int32 (the expert path above) still reads
+    int8."""
+    rng = np.random.default_rng(1)
+    q = rng.integers(-64, 64, size=(2, 4, 16)).astype(np.int32)
+    k = rng.integers(-64, 64, size=(96, 4, 16)).astype(np.int32)
+
+    def jfn(a, b):
+        return jnp.einsum("bhd,shd->bhs", a, b.astype(jnp.int32))
+
+    def tfn(a, b):
+        return torch.einsum("bhd,shd->bhs", a, b.to(torch.int32))
+    an, _ = _ref(jfn, jnp.asarray(q), jnp.asarray(k, getattr(jnp, kv)))
+    got = analyze_program(tfn, torch.from_numpy(q),
+                          torch.from_numpy(k).to(getattr(torch, kv)))
+    assert got.hbm_bytes == an.hbm_bytes == (q.size + k.size) * 4 \
+        + 2 * 4 * 96 * 4
+    x8 = torch.from_numpy(k[:8]).to(torch.int8)
+    w8 = torch.from_numpy(k[:, :, 0].T.copy()).to(torch.int8)
+    int8 = analyze_program(lambda a, b: a.to(torch.int32) @ b.to(torch.int32),
+                           x8.reshape(8, 64)[:, :4], w8[:4])
+    assert int8.hbm_bytes == 8 * 4 + 4 * 96 + 8 * 96 * 4
+
+
 def test_uint32_mask_counts_as_a_convert():
     """`x & 0xFFFFFFFF` of an int64 is the port's spelling of a uint32
     value: a free convert, no bitwise op; any other mask is a bitwise and."""

@@ -61,7 +61,10 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.bank_parallel import BankGrid
     from repro_torch.launch import serve
     from repro_torch.models import init_cache, init_params
+    from repro_torch.dispatch import workloads
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.dispatch_engine import (DispatchDecodeStep,
+                                                   DispatchPrefillStep)
     cfg = REDUCED["granite-3-8b"]
     params = init_params(0, cfg, device="cpu")
     for call in (lambda: ServeEngine(cfg, params, batch_slots=1, max_len=8),
@@ -75,6 +78,24 @@ def test_entry_points_default_to_the_card():
                  lambda: bench_run.main(["prim_bench"]),
                  lambda: suitability_bench.run(bench_run.Report()),
                  lambda: suitability_bench.prim_reports(),
-                 lambda: bench_run.main(["suitability_bench"])):
+                 lambda: bench_run.main(["suitability_bench"]),
+                 lambda: serve.main(["--arch", "granite-3-8b", "--reduced",
+                                     "--engine", "dispatch"]),
+                 lambda: DispatchDecodeStep(cfg, batch_slots=1, max_len=8),
+                 lambda: DispatchPrefillStep(cfg, max_len=8),
+                 lambda: workloads.mixed_pipeline(m=8),
+                 lambda: workloads.decode_pipeline()):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
+
+
+def test_launcher_serves_through_dispatch_on_the_cpu(capsys):
+    """`launch.serve --engine dispatch --device cpu` serves a REDUCED
+    config through the planner-routed steps."""
+    from repro_torch.launch import serve
+    assert serve.main(["--arch", "granite-3-8b", "--reduced", "--device",
+                       "cpu", "--engine", "dispatch", "--prefill-chunk",
+                       "4", "--requests", "3", "--max-new", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "decode plan: dag-dp" in out and "prefill plan:" in out
+    assert "3 requests" in out
