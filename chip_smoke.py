@@ -207,6 +207,29 @@ Phases, each of which raises (exit code != 0) on failure:
    padded to 128, bit-exact to int64) and starcoder2-7b (banded prefill,
    22-token prompts in 4-token chunks), f32, max_len 32: dispatch tokens
    identical to the fused engine's on the card.
+15. The serving gateway (`repro_torch.serve.gateway`) on the card. (a)
+   gateway_bench's full-width workload (`full_width_gateway`, the same
+   that `gateway_bench` serves on the card): granite-3-8b at full width
+   and depth (bf16, phase 5's engine: 4 slots x 2048, SEED weights)
+   behind `Gateway`, 16 seeded Poisson arrivals of 32 new tokens with
+   prompts of 64-1500 tokens at half the rate that the warmed engine's
+   measured admission and step times sustain, written with
+   `save_arrival_trace` and read back with `load_arrival_trace`; the plan
+   cache prewarmed (timed) over the whole envelope; every request done,
+   no plan solved in band, exactly one decode-attention launch a layer
+   and decode step and one flash launch (tensor-core route) a layer and
+   admission; `GatewayStats.rows()` and one `{"gateway": {...}}` JSON
+   line (sustained and goodput req/s, TTFT and ITL p50/p99, tokens/s,
+   decode steps, prewarm seconds, the card's name and power limit). (b)
+   GATEWAY_PAIR_REQUESTS requests with prompts within one prefill chunk
+   through a gateway over the fused engine and one over
+   `engine="dispatch"` (full width, GATEWAY_PAIR_LAYERS layers, f32, one
+   set of weights), each under its own `ManualClock(tick=1e-3)`: the same
+   decisions, stats, plan-cache keys and tokens; the planner-fidelity gate
+   on the dispatch run's traced decode timeline. (c) `python -m
+   repro_torch.benchmarks.run gateway_bench --quick --trace <tmp>`,
+   `dispatch_bench --quick` and `scaling_bench`, in process: each exits 0
+   (its gates held); only gateway_bench launches kernels (attention).
 
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
@@ -215,7 +238,8 @@ kernels, scan_lookback included), its `prim_launches` those of phases 9
 and 10 together, and its `moe_swa_launches` those of the counted runs of
 phases 11 and 12 (the two qwen2-moe serves, the kernel runs of the
 wrapping schedules and starcoder2-7b's full-width run), and its
-`dispatch_launches` those of phase 14's counted runs. The last line is
+`dispatch_launches` those of phase 14's counted runs, and its
+`gateway_launches` those of phase 15. The last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -373,6 +397,11 @@ PREFILL_PLANNED = 4
 # bytes a dropped dispatch engine may leave allocated (its weights and
 # cache are 16.7 GB)
 LEFT_AFTER_DROP = 1 << 30
+# phase 15 (b): fused and dispatch gateways under one virtual clock, on
+# phase 14 (b)'s model (full width, 4 layers, f32); prompts within one
+# 512-token prefill chunk
+GATEWAY_PAIR_LAYERS = 4
+GATEWAY_PAIR_REQUESTS = 6
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -2997,6 +3026,194 @@ def dispatch_reduced(kernels, total, device: str = "cuda"):
             raise AssertionError(f"{cfg.name}: dispatch launches {launches}")
 
 
+# --------------------------------------------------------------------- #
+# phase 15: the serving gateway on the card
+# --------------------------------------------------------------------- #
+
+def gateway_full_width(kernels, served, total, smi: str,
+                       device: str = "cuda", **workload):
+    """Phase 15 (a): gateway_bench's full-width workload
+    (`full_width_gateway`: granite-3-8b at full width and depth behind
+    `Gateway` under seeded Poisson arrivals, the plan cache prewarmed;
+    `workload` shrinks it for a CPU rehearsal), its gates
+    (`check_full_width`: every request done, no plan solved in band), and
+    exactly one decode-attention kernel a layer and decode step and one
+    flash kernel (tensor-core route) a layer and admission. Prints the
+    gateway's `GatewayStats.rows()` and one `{"gateway": {...}}` JSON
+    line. Returns the JSON's dict."""
+    from repro_torch.benchmarks import gateway_bench as gb
+
+    fw = gb.full_width_gateway(device, **workload)
+    engine, cfg = fw.engine, fw.cfg
+    log(f"  prewarm: {fw.prewarm['misses']} plan solves in "
+        f"{fw.prewarm_s:.2f}s, cache {fw.prewarm}")
+    steps0, prefills0 = engine.n_decode_steps, engine.n_prefills
+    reset_counts(kernels)
+    stats = fw.gateway.run(fw.requests)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    steps = engine.n_decode_steps - steps0
+    admissions = engine.n_prefills - prefills0
+    want = {"decode_attention": cfg.n_layers * steps,
+            "flash_attention": cfg.n_layers * admissions}
+    if device == "cuda":
+        want["flash_route"] = "tensor_core"
+    launches = dispatch_counts(kernels, "gateway full width", want, total)
+    for row in stats.rows():
+        log(f"  {row[0]:22s} {row[1]}")
+    log(f"  arrivals at {fw.rate_rps:.4f} req/s ({gb.FULL_LOAD} x "
+        f"{fw.sustain_rps:.4f}: {fw.admission_s * 1e3:.1f} ms an admission, "
+        f"{fw.step_s * 1e3:.2f} ms/step on the warmed engine; phase 5: "
+        f"{served['prefill_ms']:.1f} ms, {served['decode_ms_per_step']:.2f}"
+        f" ms/step); launches {launches} over {steps} decode steps and "
+        f"{admissions} admissions")
+    gb.check_full_width(fw, stats)
+    if admissions != len(fw.requests):
+        raise AssertionError(f"gateway: {admissions} admissions of "
+                             f"{len(fw.requests)} requests")
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "slots": engine.n_slots, "max_len": engine.max_len,
+           "requests": len(fw.requests), "new_tokens": gb.FULL_NEW,
+           "prompt_lens": sorted({len(g.prompt) for g in fw.requests}),
+           "admission_ms": fw.admission_s * 1e3,
+           "step_ms": fw.step_s * 1e3, "rate_rps": fw.rate_rps,
+           "completed": stats.completed, "duration_s": stats.duration_s,
+           "sustained_rps": stats.sustained_rps,
+           "goodput_rps": stats.goodput_rps,
+           "slo_ttft_s": gb.FULL_SLO_TTFT_S, "slo_itl_s": gb.FULL_SLO_ITL_S,
+           "ttft_p50_ms": stats.ttft_p50_s * 1e3,
+           "ttft_p99_ms": stats.ttft_p99_s * 1e3,
+           "itl_p50_ms": stats.itl_p50_s * 1e3,
+           "itl_p99_ms": stats.itl_p99_s * 1e3,
+           "tokens_per_s": stats.tokens / stats.duration_s,
+           "decode_steps": steps, "prewarm_s": fw.prewarm_s,
+           "prewarm_solves": fw.prewarm["misses"],
+           "hit_rate": stats.plan_cache["hit_rate"],
+           "pos_bucket": fw.gateway.pos_bucket, "card": smi}
+    print(json.dumps({"gateway": out}), flush=True)
+    return out
+
+
+def gateway_pair(kernels, total, device: str = "cuda",
+                 arch: str = "granite-3-8b", reduced: bool = False,
+                 max_len: int = 1024):
+    """Phase 15 (b): the same GATEWAY_PAIR_REQUESTS requests (prompts within
+    one 512-token prefill chunk, three priority classes, dense arrivals)
+    through a gateway over the fused engine and one over
+    `engine="dispatch"`, on one set of weights (phase 14 (b)'s model:
+    full width, GATEWAY_PAIR_LAYERS layers, f32), each under its own
+    `ManualClock(tick=1e-3)`: identical decisions (admission order,
+    `admit_s`, token times, reject reasons, stats, plan-cache keys) and
+    identical tokens. A tracer on the dispatch run feeds the planner-
+    fidelity gate on its decode DAG and plan."""
+    from repro_torch.configs import get_arch
+    from repro_torch.dispatch import trace as dtrace
+    from repro_torch.models import init_params
+    from repro_torch.serve import (Gateway, ManualClock, ServeEngine,
+                                   poisson_requests)
+
+    cfg = dataclasses.replace(get_arch(arch, reduced=reduced),
+                              n_layers=GATEWAY_PAIR_LAYERS, dtype="float32")
+    params = init_params(SEED, cfg, device)
+    top = min(512, max_len - 16)
+    runs = {}
+    for name in ("fused", "dispatch"):
+        kw = ({"engine": "dispatch", "dispatch_kwargs": {
+            "prefill_chunk": 512}} if name == "dispatch" else {})
+        engine = ServeEngine(cfg, params, batch_slots=4, max_len=max_len,
+                             seed=SEED, device=device, **kw)
+        gw = Gateway(engine, queue_capacity=8, pos_bucket=64,
+                     clock=ManualClock(tick=1e-3))
+        if name == "dispatch":
+            tracer = dtrace.Trace("gateway-dispatch")
+            gw.attach_tracer(tracer)
+        reqs = poisson_requests(GATEWAY_PAIR_REQUESTS, 100.0, seed=SEED + 11,
+                                vocab=cfg.vocab_size, prompt_lens=(16, top),
+                                max_new=(4, 12))
+        if not all(engine.prefill_splits(len(g.prompt)) == [len(g.prompt)]
+                   for g in reqs):
+            raise AssertionError(f"{name}: a prompt takes more than one "
+                                 f"prefill chunk")
+        steps0, prefills0 = engine.n_decode_steps, engine.n_prefills
+        reset_counts(kernels)
+        stats = gw.run(reqs)
+        want = {"decode_attention":
+                cfg.n_layers * (engine.n_decode_steps - steps0),
+                "flash_attention":
+                cfg.n_layers * (engine.n_prefills - prefills0)}
+        launches = dispatch_counts(kernels, f"gateway pair {name}", want,
+                                   total)
+        everyone = sorted(gw.finished + gw.rejected, key=lambda g: g.rid)
+        runs[name] = {
+            "decisions": [(g.rid, g.state, g.reject_reason, g.admit_s,
+                           g.finish_s, tuple(g.token_times))
+                          for g in everyone],
+            "admit_order": [g.rid for g in sorted(
+                gw.finished, key=lambda g: g.admit_s)],
+            "stats": dataclasses.astuple(stats),
+            "keys": list(gw.plans._entries),
+            "tokens": [g.out_tokens for g in everyone]}
+        log(f"  {name}: {stats.completed} done of {stats.offered}, "
+            f"{stats.steps} steps, admit order {runs[name]['admit_order']}, "
+            f"plan cache {stats.plan_cache}, launches {launches}")
+        if name == "dispatch":
+            step = engine._dispatch_decode
+            rep = dtrace.fidelity(step.dag, step.plan, trace=tracer)
+            log(f"  dispatch: {rep.render()}; prefill executor cache "
+                f"{engine._dispatch_prefill.executor_cache.stats}; decode "
+                f"spans {len(tracer.by_kind('decode_step'))}, prefill spans "
+                f"{len(tracer.by_kind('prefill_step'))}")
+            if not rep.ok:
+                raise AssertionError(f"gateway dispatch: {rep.render()}")
+        del engine, gw
+    f, d = runs["fused"], runs["dispatch"]
+    log(f"  tokens {f['tokens']}")
+    for key in ("decisions", "admit_order", "stats", "keys"):
+        if f[key] != d[key]:
+            raise AssertionError(f"gateway pair: {key} differ: fused "
+                                 f"{f[key]}, dispatch {d[key]}")
+    if f["tokens"] != d["tokens"]:
+        raise AssertionError(f"gateway pair: tokens differ: fused "
+                             f"{f['tokens']}, dispatch {d['tokens']}")
+
+
+def gateway_entry_points(kernels, total, device: str = "cuda"):
+    """Phase 15 (c): `python -m repro_torch.benchmarks.run gateway_bench
+    --quick --trace <tmp>`, `dispatch_bench --quick` and `scaling_bench`,
+    each in process on `device`: each must exit 0 (its gates held). The
+    gateway bench serves REDUCED granite-3-8b (bf16) through both engines:
+    attention kernels only; the other two plan and model: no launch."""
+    import tempfile
+
+    from repro_torch.benchmarks import run
+    extra = [] if device == "cuda" else ["--device", device]
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "gateway_trace.json"
+        for argv in (["gateway_bench", "--quick", "--trace", str(trace)],
+                     ["dispatch_bench", "--quick"], ["scaling_bench"]):
+            reset_counts(kernels)
+            if run.main(argv + extra) != 0:
+                raise AssertionError(f"repro_torch.benchmarks.run "
+                                     f"{' '.join(argv)} failed")
+            if device == "cuda":
+                torch.cuda.synchronize()
+            launches = {k: kern.launches for k, kern in kernels.items()}
+            for k, n in launches.items():
+                total[k] += n
+            log(f"  {' '.join(argv)}: exit 0, launches "
+                f"{ {k: n for k, n in launches.items() if n} }")
+            used = {k for k, n in launches.items() if n}
+            if argv[0] == "gateway_bench":
+                if used != {"decode_attention", "flash_attention"}:
+                    raise AssertionError(f"gateway_bench launches {launches}")
+                doc = json.loads(trace.read_text())
+                chrome = trace.with_name("gateway_trace.chrome.json")
+                log(f"  gateway trace: {len(doc['events'])} events, Chrome "
+                    f"twin {chrome.stat().st_size} bytes")
+            elif used:
+                raise AssertionError(f"{argv[0]} launched {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3117,6 +3334,20 @@ def main() -> int:
     torch.cuda.empty_cache()
     dispatch_reduced(kernels, launches14)
     log(f"  launches on the planner-routed path (phase 14): {launches14}")
+    torch.cuda.empty_cache()
+
+    log("phase 15: the serving gateway: granite-3-8b full width under "
+        "Poisson arrivals; fused and dispatch gateways under one virtual "
+        "clock; the gateway, dispatch and scaling bench entry points")
+    launches15 = {name: 0 for name in kernels}
+    t15 = time.perf_counter()
+    gateway_full_width(kernels, served, launches15, smi)
+    torch.cuda.empty_cache()
+    gateway_pair(kernels, launches15)
+    torch.cuda.empty_cache()
+    gateway_entry_points(kernels, launches15)
+    log(f"  launches on the gateway path (phase 15): {launches15}; phase "
+        f"15 took {time.perf_counter() - t15:.1f}s")
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
@@ -3163,6 +3394,7 @@ def main() -> int:
             "prim_launches": prim_path[name],
             "moe_swa_launches": moe_swa[name],
             "dispatch_launches": launches14[name],
+            "gateway_launches": launches15[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

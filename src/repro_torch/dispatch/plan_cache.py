@@ -17,7 +17,7 @@ share one solve, and `PlanCache` LRU-holds whatever the solve produced
 (a `Plan`, a priced (graph, plan, seconds) bundle, a `PlanExecutor`)
 with FaceCache-style hit/miss accounting.
 
-Users: the serving gateway (`repro.serve.gateway`) prices every decode
+Users: the serving gateway (`repro_torch.serve.gateway`) prices every decode
 step and every candidate admission through one of these, and
 `serve.dispatch_engine.DispatchPrefillStep` holds its per-chunk-split
 executors in one. Modeled times stored by builders are SECONDS; keys

@@ -1,9 +1,7 @@
 """Launch/transfer scheduling: turn a placement into an execution timeline.
 
 A copy of `repro.dispatch.schedule`, kept in the port because the port
-imports nothing of `repro`; it uses no framework. Modules it names that
-the port has not ported yet (the executor, the dispatch benchmark) are the
-reference's.
+imports nothing of `repro`; it uses no framework.
 
 The paper's programming recommendations, made mechanical:
 
@@ -56,7 +54,7 @@ Two execution disciplines are modeled over the same group timeline:
     `meta["kv_writers"]`), and KV write-backs occupy only the channel, so
     later groups' compute runs under them. This is the discipline
     `dispatch.executor.PlanExecutor` executes, and the number
-    `benchmarks/dispatch_bench.py` reports against the serial chunk loop.
+    `benchmarks.dispatch_bench` reports against the serial chunk loop.
 """
 
 from __future__ import annotations
@@ -251,7 +249,7 @@ def make_schedule(graph: OpGraph, plan: Plan, dpu: DPUModel | None = None,
     fills `Schedule.pipelined_s` (off by default: the overlapped-objective
     coordinate descent calls this many times per plan). `order` costs an
     alternative linearization (must be a valid topological order of
-    `graph`) — how `benchmarks/dispatch_bench.py` prices the old
+    `graph`) — how `benchmarks.dispatch_bench` prices the old
     chunk-serial prefill loop against the executor's pipelined timeline.
     `node_times` overrides per-node compute seconds (name -> seconds; the
     trace replayer's measured-duration re-pricing); `events`, when a list

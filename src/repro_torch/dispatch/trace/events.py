@@ -80,7 +80,7 @@ class Trace:
 
     Recording is append-only and cheap (one `perf_counter` call and one
     list append per event) so a tracer can stay attached to the serving
-    hot loop — the <5% overhead budget benchmarks/dispatch_bench.py
+    hot loop — the <5% overhead budget benchmarks.dispatch_bench
     measures. `meta` carries run-level context (graph name, assignment,
     whether spans are modeled or measured)."""
 

@@ -55,8 +55,12 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     from repro_torch import bridge, prim
-    from repro_torch.benchmarks import prim_bench, suitability_bench
+    from repro_torch.benchmarks import (dispatch_bench, gateway_bench,
+                                        prim_bench, suitability_bench)
     from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import (dispatch_demo, gateway_serve,
+                                      prim_multibank, quickstart,
+                                      serve_decode)
     from repro_torch.configs import REDUCED
     from repro_torch.core.bank_parallel import BankGrid
     from repro_torch.launch import serve
@@ -84,7 +88,17 @@ def test_entry_points_default_to_the_card():
                  lambda: DispatchDecodeStep(cfg, batch_slots=1, max_len=8),
                  lambda: DispatchPrefillStep(cfg, max_len=8),
                  lambda: workloads.mixed_pipeline(m=8),
-                 lambda: workloads.decode_pipeline()):
+                 lambda: workloads.decode_pipeline(),
+                 lambda: bench_run.main(["scaling_bench"]),
+                 lambda: bench_run.main(["dispatch_bench", "--quick"]),
+                 lambda: bench_run.main(["gateway_bench", "--quick"]),
+                 lambda: dispatch_bench.run(bench_run.Report(), quick=True),
+                 lambda: gateway_bench.run(bench_run.Report(), quick=True),
+                 lambda: quickstart.main([]),
+                 lambda: prim_multibank.main([]),
+                 lambda: dispatch_demo.main([]),
+                 lambda: serve_decode.main([]),
+                 lambda: gateway_serve.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 

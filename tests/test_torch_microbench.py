@@ -69,7 +69,7 @@ def test_cli_microbench_on_cpu(capsys):
 
 def test_cli_rejects_unknown_module():
     with pytest.raises(SystemExit):
-        trun.main(["dispatch_bench", "--device", "cpu"])
+        trun.main(["no_such_bench", "--device", "cpu"])
 
 
 def test_entry_points_need_the_card_unless_told_cpu():
