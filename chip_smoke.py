@@ -231,6 +231,34 @@ Phases, each of which raises (exit code != 0) on failure:
    `dispatch_bench --quick` and `scaling_bench`, in process: each exits 0
    (its gates held); only gateway_bench launches kernels (attention).
 
+16. The rest of the zoo on the fused engine (`ServeEngine(engine="jit")`
+   and `forward`). Phase 3's lists carry the zoo's attention shapes
+   (whisper-tiny's encoder, cross prefill and cross decode over 1500 keys,
+   qwen2-vl-72b's 64-over-8-head prefill and decode). (b) rwkv6-3b at full
+   width and depth (bf16, phase 5's engine and workload): every request
+   done and no kernel launched (RWKV has no attention); TTFT, ms/step,
+   weight bytes, peak memory and the admissions' seconds by wkv route
+   (chunked, per token) logged. Then 4 layers in f32: a
+   RWKV_ROUTE_PROMPT-token prompt on the chunked route and token by token
+   on the per-token route, 8 greedy steps each, each within RWKV_F64_BAND
+   of an f64 run, tokens identical. (c) whisper-tiny at full width and
+   depth (bf16): `forward` with 4 rows of 1500 frame embeddings, a
+   64-token prefill into a 448-token cache and 32 steps on the cached cross
+   K/V, every attention call held to its plain version in bf16 and f64
+   (P5's form), 12 flash launches in the prefill (4 encoder, 4 self, 4
+   cross; tensor-core route) and 8 decode launches a step; then
+   `launch.serve --arch whisper-tiny` in process. (d) qwen2-vl-72b at
+   full width, QWEN_VL_LAYERS layers (bf16): phase 5's engine and workload,
+   exactly 16 decode launches a step and 16 flash launches (tensor-core
+   route) an admission; then a prefill of 1024 embeds with M-RoPE streams
+   over a 32 x 32 grid, every call held to its plain version in bf16 and
+   f64. (e) REDUCED jamba-1.5-large-398b in f32: tests/test_models.py's
+   decode == full forward schedule (capacity 8.0) through the kernels and
+   the plain versions, the same choices; a 4-slot ServeEngine through
+   both, the same tokens; then one mamba layer at jamba's full width
+   (d 8192, d_inner 16384), bf16, a 1000-token prefill and 8 steps, within
+   MAMBA_BF16_BAND of an f64 run of the same layer.
+
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
 for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
@@ -238,8 +266,9 @@ kernels, scan_lookback included), its `prim_launches` those of phases 9
 and 10 together, and its `moe_swa_launches` those of the counted runs of
 phases 11 and 12 (the two qwen2-moe serves, the kernel runs of the
 wrapping schedules and starcoder2-7b's full-width run), and its
-`dispatch_launches` those of phase 14's counted runs, and its
-`gateway_launches` those of phase 15. The last line is
+`dispatch_launches` those of phase 14's counted runs, its
+`gateway_launches` those of phase 15, and its `zoo_launches` those of
+phase 16's counted runs. The last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -402,6 +431,29 @@ LEFT_AFTER_DROP = 1 << 30
 # 512-token prefill chunk
 GATEWAY_PAIR_LAYERS = 4
 GATEWAY_PAIR_REQUESTS = 6
+# phase 16 (b): rwkv6-3b at full width, 4 layers, f32: a prompt of a
+# multiple of WKV_CHUNK tokens, prefilled on the chunked route and token by
+# token on the per-token route. Each route's logits over the prefill and 8
+# decode steps may lie this far from an f64 run (max |x - f64| / max |f64|),
+# a band set before the first run on the card: 2.0e-5 was measured on the
+# CPU at d_model 512
+RWKV_ROUTE_LAYERS = 4
+RWKV_ROUTE_PROMPT = 512
+RWKV_F64_BAND = 1e-3
+# phase 16 (c): whisper-tiny, 4 rows of 1500 frame embeddings, a 64-token
+# prefill into whisper's published 448-token decoder context, 32 steps
+WHISPER_BATCH, WHISPER_PROMPT = 4, 64
+WHISPER_MAX_LEN, WHISPER_STEPS = 448, 32
+# phase 16 (d): qwen2-vl-72b, 16 of its 80 layers (80 are 145.4 GB in
+# bf16); the embeds prefill covers a 32 x 32 visual grid
+QWEN_VL_LAYERS = 16
+QWEN_VL_GRID = 32
+# phase 16 (e): one mamba layer at jamba's full width, bf16, against an
+# f64 run of the same layer: max |bf16 - f64| / max |f64| over the prefill
+# and the decode steps, a band set before the first run on the card
+# (6.2e-3 was measured on the CPU at d_model 1024)
+MAMBA_PROMPT, MAMBA_STEPS = 1000, 8
+MAMBA_BF16_BAND = 3e-2
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -412,6 +464,10 @@ DECODE_CASES = [
     # the kernel's limits: 16 query heads per KV head at hd 256; hd 8
     (2, 32, 2, 256, 300, [5, 300]),
     (1, 2, 1, 8, 50, 50),
+    # phase 16's paths: whisper-tiny's cross-attention decode over the
+    # 1500 encoder rows, qwen2-vl-72b's decode (64 heads over 8)
+    (4, 6, 6, 64, 1500, 1500),
+    (4, 64, 8, 128, 2048, [1, 700, 1500, 2048]),
 ]
 # bf16 only: the tensor-core route's edges (ragged Sq/Skv at hd 64 and
 # 128, hd 16 of the REDUCED configs, 48 and 256) and one bf16 head dim that
@@ -437,6 +493,12 @@ FLASH_CASES = [
     # rows with no unmasked key: q_pos >= Skv + window - 1
     (40, 16, 4, 2, 64, True, 4),
     (300, 100, 4, 2, 128, False, 32),
+    # phase 16's paths: whisper-tiny's encoder and a prefill's
+    # cross-attention (1500 keys, no multiple of the 64-row tile), no
+    # mask; qwen2-vl-72b's prefill
+    (1500, 1500, 6, 6, 64, False, 0),
+    (750, 1500, 6, 6, 64, False, 0),
+    (1024, 1024, 64, 8, 128, True, 0),
 ]
 # (Sq, Skv, H, KVH, hd, window, q_offset), causal: a chunk of a chunked
 # prefill whose queries sit q_offset positions past the first key (phase
@@ -790,17 +852,21 @@ def checked_attention(ops, ref, worst):
         ops.decode_attention, ops.flash_attention = saved
 
 
-def greedy_run(cfg, params, prompt, max_len, steps=8, forced=None):
-    """Prefill `prompt` (1, S), then `steps` greedy decode steps (or steps
-    on the `forced` tokens). Returns the tokens and the logits of every
-    step, (steps + 1, vocab) in f64."""
+def greedy_run(cfg, params, prompt, max_len, steps=8, forced=None,
+               token_by_token=False):
+    """Prefill `prompt` (1, S) in one forward (or `token_by_token`, one
+    forward a token), then `steps` greedy decode steps (or steps on the
+    `forced` tokens). Returns the tokens and the logits of every step,
+    (steps + 1, vocab) in f64."""
     from repro_torch.models import forward, init_cache
-    cache = init_cache(cfg, 1, max_len, "cuda")
-    logits, cache, _ = forward(params, cfg, tokens=prompt, cache=cache)
+    dev = prompt.device
+    cache = init_cache(cfg, 1, max_len, dev)
+    for chunk in (prompt.split(1, dim=1) if token_by_token else [prompt]):
+        logits, cache, _ = forward(params, cfg, tokens=chunk, cache=cache)
     outs, toks = [logits[:, -1]], []
     for i in range(steps):
         tok = outs[-1].argmax(-1) if forced is None else torch.tensor(
-            [forced[i]], device="cuda")
+            [forced[i]], device=dev)
         toks.append(int(tok))
         logits, cache, _ = forward(params, cfg, tokens=tok[:, None],
                                    cache=cache)
@@ -944,10 +1010,13 @@ def full_width_bf16_check(ops, ref):
 # phase 5: the main path
 # --------------------------------------------------------------------- #
 
-def serve_workload(arch: str = "granite-3-8b", **engine_kwargs):
+def serve_workload(arch: str = "granite-3-8b", n_layers: int | None = None,
+                   device: str = "cuda", reduced: bool = False,
+                   **engine_kwargs):
     """Phase 5's workload: `arch` (granite-3-8b; phase 11 serves
-    qwen2-moe-a2.7b) at full width and depth, random weights from SEED,
-    a ServeEngine of 4 slots x 2048 tokens (`engine_kwargs` added: phase
+    qwen2-moe-a2.7b, phase 16 rwkv6-3b and qwen2-vl-72b) at full width
+    and depth (or `n_layers` of it; REDUCED for a rehearsal on the CPU),
+    random weights from SEED, a ServeEngine of 4 slots x 2048 tokens (`engine_kwargs` added: phase
     14 serves through `engine="dispatch"`), and 8 seeded requests with
     prompts of 64-1500 tokens and 32 new tokens each.
     Returns (cfg, params, engine, requests)."""
@@ -955,12 +1024,14 @@ def serve_workload(arch: str = "granite-3-8b", **engine_kwargs):
     from repro_torch.models import init_params
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_arch(arch)
-    if arch == "granite-3-8b":
+    cfg = get_arch(arch, reduced)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if arch == "granite-3-8b" and not reduced:
         assert cfg.n_layers == SERVE_LAYERS
-    params = init_params(SEED, cfg, "cuda")
+    params = init_params(SEED, cfg, device)
     engine = ServeEngine(cfg, params, batch_slots=4, max_len=2048,
-                         seed=SEED, device="cuda", **engine_kwargs)
+                         seed=SEED, device=device, **engine_kwargs)
     gen = torch.Generator().manual_seed(SEED + 1)
     lens = torch.randint(64, 1501, (8,), generator=gen).tolist()
     reqs = [Request(i, torch.randint(0, cfg.vocab_size, (n,), generator=gen),
@@ -3214,6 +3285,392 @@ def gateway_entry_points(kernels, total, device: str = "cuda"):
                 raise AssertionError(f"{argv[0]} launched {launches}")
 
 
+# --------------------------------------------------------------------- #
+# phase 16: the rest of the zoo on the fused engine
+# --------------------------------------------------------------------- #
+
+def held_to_f64(what, worst, dtype) -> None:
+    """P5's form: per kernel, the worst max |kernel - f64| / max |f64|
+    within TOL, or no larger than the plain version's plus CALL_TOL."""
+    log_worst(worst, f" (kernel-f64 limit: TOL or plain-f64 + {CALL_TOL})")
+    for name, w in worst.items():
+        limit = max(TOL[(name, dtype)], w["plain-f64"] + CALL_TOL)
+        if not w["kernel-f64"] <= limit:
+            raise AssertionError(f"{what}: {name} kernel is "
+                                 f"{w['kernel-f64']:.3g} of the output's "
+                                 f"scale from f64, the plain version "
+                                 f"{w['plain-f64']:.3g} (limit {limit:.3g})")
+
+
+def served_gates(what, cfg, done, reqs) -> None:
+    if len(done) != len(reqs):
+        raise AssertionError(f"{what}: {len(done)} of {len(reqs)} requests "
+                             f"finished")
+    for r in done:
+        if len(r.out_tokens) != r.max_new_tokens:
+            raise AssertionError(f"{what}: req {r.rid}: "
+                                 f"{len(r.out_tokens)} tokens")
+        if not all(0 <= t < cfg.vocab_size for t in r.out_tokens):
+            raise AssertionError(f"{what}: req {r.rid}: vocab-padding token")
+
+
+def log_served(what, engine, metrics, done, params) -> None:
+    from repro_torch.models import tree_map
+    leaves = []
+    tree_map(leaves.append, params)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    for r, ttft in zip(done, metrics["ttft_ms"]):
+        log(f"  {what} req {r.rid}: prompt {len(r.prompt)}, TTFT "
+            f"{ttft:.1f} ms")
+    log(f"  {what}: serve wall {metrics['wall_s']:.3f}s; prefill "
+        f"{metrics['prefill_ms']:.1f} ms per admission; decode "
+        f"{metrics['decode_ms_per_step']:.2f} ms/step over "
+        f"{engine.n_decode_steps} steps, {metrics['decode_tokens_per_s']:.1f}"
+        f" decode tokens/s; {sum(t.numel() for t in leaves)} parameters, "
+        f"weight bytes {weight_bytes}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated()}")
+
+
+def rwkv_serve(kernels, total, device="cuda", reduced=False) -> dict:
+    """(b) rwkv6-3b at full width and depth, bf16, phase 5's engine and
+    workload: every request done, no attention kernel launched (RWKV has
+    no attention). Each admission is timed (synchronized) and filed under
+    its wkv route: chunked for a prompt of a multiple of WKV_CHUNK tokens,
+    else per token."""
+    from repro_torch.models import rwkv
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, engine, reqs = serve_workload("rwkv6-3b", device=device,
+                                               reduced=reduced)
+    admissions = []
+    inner = engine._prefill_one
+
+    def timed(tokens, slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(tokens, slot)
+        torch.cuda.synchronize()
+        admissions.append((int(tokens.shape[0]), time.perf_counter() - t0))
+        return out
+
+    engine._prefill_one = timed
+    reset_counts(kernels)
+    try:
+        done, metrics = serve(engine, reqs)
+    finally:
+        del engine._prefill_one
+    dispatch_counts(kernels, "rwkv6-3b serve", {}, total)
+    served_gates("rwkv6-3b", cfg, done, reqs)
+    log_served("rwkv6-3b", engine, metrics, done, params)
+    by_route = {"chunked": [0, 0, 0.0], "per-token": [0, 0, 0.0]}
+    for n, sec in admissions:
+        route = "chunked" if n > 1 and n % rwkv.WKV_CHUNK == 0 \
+            else "per-token"
+        by_route[route][0] += 1
+        by_route[route][1] += n
+        by_route[route][2] += sec
+    for route, (k, n, sec) in by_route.items():
+        log(f"  rwkv6-3b prefill, {route} route: {k} admissions, {n} "
+            f"tokens, {sec:.3f}s" + (f" ({sec / n * 1e3:.3f} ms a token)"
+                                     if n else ""))
+    return dict(metrics, by_route=by_route)
+
+
+def rwkv_routes(device="cuda", reduced=False, prompt_len=RWKV_ROUTE_PROMPT):
+    """(b) rwkv6-3b at full width, RWKV_ROUTE_LAYERS layers, f32: one
+    prompt of a multiple of WKV_CHUNK tokens prefilled in one forward (the
+    chunked route) and one forward a token (the per-token route), then 8
+    greedy steps each; the same prompt in f64 (f64 weights), forced on the
+    chunked run's tokens. Each route within RWKV_F64_BAND of f64, greedy
+    tokens identical."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params, rwkv, tree_map
+
+    assert prompt_len % rwkv.WKV_CHUNK == 0
+    cfg = dataclasses.replace(get_arch("rwkv6-3b", reduced),
+                              n_layers=RWKV_ROUTE_LAYERS, dtype="float32")
+    params = init_params(SEED, cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 16)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len),
+                           generator=gen).to(device)
+    max_len = prompt_len + 16
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        toks_c, lg_c = greedy_run(cfg, params, prompt, max_len)
+        t1 = time.perf_counter()
+        toks_p, lg_p = greedy_run(cfg, params, prompt, max_len,
+                                  token_by_token=True)
+        t2 = time.perf_counter()
+        params = tree_map(lambda t: t.double(), params)
+        _, lg_64 = greedy_run(dataclasses.replace(cfg, dtype="float64"),
+                              params, prompt, max_len, forced=toks_c)
+    err_c, err_p = rel(lg_c, lg_64), rel(lg_p, lg_64)
+    log(f"  rwkv6-3b {RWKV_ROUTE_LAYERS} layers f32, {prompt_len}-token "
+        f"prompt: chunked prefill + 8 steps {t1 - t0:.3f}s, token by token "
+        f"{t2 - t1:.3f}s; logits vs f64: chunked {err_c:.3g}, per-token "
+        f"{err_p:.3g}, chunked vs per-token {rel(lg_c, lg_p):.3g} (band "
+        f"{RWKV_F64_BAND})")
+    log(f"  tokens chunked   {toks_c}")
+    log(f"  tokens per-token {toks_p}")
+    if toks_c != toks_p:
+        raise AssertionError("rwkv6-3b: the two wkv routes chose different "
+                             "tokens")
+    if not (torch.isfinite(lg_c).all() and torch.isfinite(lg_p).all()):
+        raise AssertionError("rwkv6-3b: logits not finite")
+    if not (err_c <= RWKV_F64_BAND and err_p <= RWKV_F64_BAND):
+        raise AssertionError(f"rwkv6-3b: a wkv route lies outside its band "
+                             f"of f64 ({err_c:.3g}, {err_p:.3g})")
+    return {"chunked_f64": err_c, "per_token_f64": err_p}
+
+
+def whisper_check(ops, ref, kernels, total, device="cuda", reduced=False):
+    """(c) whisper-tiny at full width and depth, bf16: `forward` with
+    encoder_embeds (WHISPER_BATCH rows of encoder_seq frames, from the
+    seed) prefilling WHISPER_PROMPT tokens into a WHISPER_MAX_LEN cache,
+    then WHISPER_STEPS greedy steps on the cached cross K/V. Every
+    attention call held to its plain version in bf16 and f64 (P5's form);
+    exactly encoder_layers + 2 n_layers flash launches in the prefill (all
+    on the tensor-core route) and 2 n_layers decode launches a step. Then
+    `launch.serve --arch whisper-tiny` in process."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import forward, init_cache, init_params
+
+    cfg = get_arch("whisper-tiny", reduced)
+    params = init_params(SEED, cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 17)
+    b = WHISPER_BATCH
+    enc = torch.randn(b, cfg.encoder_seq, cfg.d_model, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (b, WHISPER_PROMPT),
+                         generator=gen)
+    enc, toks = enc.to(device), toks.to(device)
+    n_enc, n = cfg.encoder_layers, cfg.n_layers
+    worst = {}
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    with torch.no_grad(), checked_attention(ops, ref, worst):
+        cache = init_cache(cfg, b, WHISPER_MAX_LEN, device)
+        logits, cache, _ = forward(params, cfg, tokens=toks,
+                                   encoder_embeds=enc, cache=cache)
+        pre = dispatch_counts(kernels, "whisper-tiny prefill", {
+            "flash_attention": n_enc + 2 * n, "flash_route": "tensor_core"},
+            total)
+        reset_counts(kernels)
+        outs = [logits[:, -1]]
+        for _ in range(WHISPER_STEPS):
+            nxt = outs[-1][:, :cfg.vocab_size].argmax(-1)
+            logits, cache, _ = forward(params, cfg, tokens=nxt[:, None],
+                                       cache=cache)
+            outs.append(logits[:, -1])
+        steps = dispatch_counts(kernels, "whisper-tiny decode", {
+            "decode_attention": 2 * n * WHISPER_STEPS}, total)
+    log(f"  whisper-tiny: prefill launches {pre}, {WHISPER_STEPS} steps "
+        f"{steps}, every flash launch on the tensor cores; "
+        f"{time.perf_counter() - t0:.3f}s with every call checked")
+    if sorted(worst) != ["decode_attention", "flash_attention"]:
+        raise AssertionError(f"whisper-tiny: attention calls seen {worst}")
+    held_to_f64("whisper-tiny", worst, torch.bfloat16)
+    if not torch.isfinite(torch.stack(outs)).all():
+        raise AssertionError("whisper-tiny: logits not finite")
+    if not cache["layers"][0]["cross"]["k"].abs().amax() > 0:
+        raise AssertionError("whisper-tiny: the prefill left the cross "
+                             "cache empty")
+    del params, cache
+    argv = ["--arch", "whisper-tiny"]
+    if device == "cpu":
+        argv += ["--device", "cpu", "--reduced"]
+    reset_counts(kernels)
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        rc = launch.main(argv)
+    launched = {k: kern.launches for k, kern in kernels.items()}
+    for k, n_k in launched.items():
+        total[k] += n_k
+    log(f"  launch.serve --arch whisper-tiny: exit {rc}; "
+        + buf.getvalue().strip().splitlines()[-2] + f"; launches {launched}")
+    if rc != 0:
+        raise AssertionError("launch.serve --arch whisper-tiny failed")
+
+
+def qwen_vl_check(ops, ref, kernels, total, device="cuda", reduced=False):
+    """(d) qwen2-vl-72b at full width, QWEN_VL_LAYERS of its layers, bf16:
+    phase 5's engine and workload (text tokens), exactly one decode launch
+    a layer and step and one flash launch (tensor-core route) a layer and
+    admission. Then one prefill of QWEN_VL_GRID^2 embeds with M-RoPE
+    streams over a visual grid (t fixed, h the row, w the column), every
+    attention call held to its plain version in bf16 and f64."""
+    from repro_torch.models import forward, init_cache
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params, engine, reqs = serve_workload(
+        "qwen2-vl-72b", n_layers=QWEN_VL_LAYERS, device=device,
+        reduced=reduced)
+    reset_counts(kernels)
+    done, metrics = serve(engine, reqs)
+    launches = dispatch_counts(kernels, "qwen2-vl-72b serve", {
+        "decode_attention": QWEN_VL_LAYERS * engine.n_decode_steps,
+        "flash_attention": QWEN_VL_LAYERS * engine.n_prefills,
+        "flash_route": "tensor_core"}, total)
+    served_gates("qwen2-vl-72b", cfg, done, reqs)
+    log_served("qwen2-vl-72b", engine, metrics, done, params)
+    log(f"  qwen2-vl-72b launches {launches}: one a layer and step, one a "
+        f"layer and admission, every flash launch on the tensor cores")
+    del engine
+    torch.cuda.empty_cache()
+
+    g = QWEN_VL_GRID
+    gen = torch.Generator().manual_seed(SEED + 18)
+    # embeds on the token table's scale (its init: 1/sqrt(padded vocab))
+    embeds = (torch.randn(1, g * g, cfg.d_model, generator=gen)
+              / cfg.padded_vocab ** 0.5).to(device)
+    cell = torch.arange(g * g)
+    pos = torch.stack([torch.zeros_like(cell), cell // g, cell % g])
+    pos = pos[:, None].to(device, torch.int32)             # (3, 1, g*g)
+    worst = {}
+    reset_counts(kernels)
+    with torch.no_grad(), checked_attention(ops, ref, worst):
+        logits, _, _ = forward(params, cfg, embeds=embeds,
+                               mrope_positions=pos,
+                               cache=init_cache(cfg, 1, g * g + 8, device))
+    launches = dispatch_counts(kernels, "qwen2-vl-72b embeds prefill", {
+        "flash_attention": QWEN_VL_LAYERS, "flash_route": "tensor_core"},
+        total)
+    log(f"  qwen2-vl-72b embeds prefill ({g}x{g} grid): launches {launches}")
+    held_to_f64("qwen2-vl-72b embeds prefill", worst, torch.bfloat16)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("qwen2-vl-72b: logits not finite")
+
+
+def jamba_checks(ops, ref, kernels, total, device="cuda"):
+    """(e) REDUCED jamba-1.5-large-398b, f32: tests/test_models.py's
+    decode == full forward schedule (capacity factor 8.0) through the
+    kernels and through the plain versions, greedy choices identical and
+    decode within the test's 2e-2 of the full forward; then a 4-slot
+    ServeEngine through both, tokens identical."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_cache, init_params
+    from repro_torch.models import layers as L
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_arch("jamba-1.5-large-398b", True),
+                              dtype="float32")
+    params = init_params(SEED, cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 19)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen)
+    toks = toks.to(device)
+
+    def schedule():
+        full, _, _ = forward(params, cfg, tokens=toks)
+        cache = init_cache(cfg, 2, 32, device)
+        _, cache, _ = forward(params, cfg, tokens=toks[:, :8], cache=cache)
+        dec = []
+        for t in range(8, 12):
+            lg, cache, _ = forward(params, cfg, tokens=toks[:, t:t + 1],
+                                   cache=cache)
+            dec.append(lg[:, 0])
+        return full[:, 8:], torch.stack(dec, 1)
+
+    n_attn = sum(s.kind == "attn" for s in cfg.layer_pattern()) \
+        * cfg.n_blocks
+    saved = L.CAPACITY_FACTOR
+    L.CAPACITY_FACTOR = 8.0
+    try:
+        with torch.no_grad():
+            reset_counts(kernels)
+            full_k, dec_k = schedule()
+            launches = dispatch_counts(kernels, "jamba schedule", {
+                "flash_attention": 2 * n_attn, "decode_attention": 4 * n_attn,
+                "flash_route": "cuda_core"}, total)
+            with plain_attention(ops, ref):
+                full_p, dec_p = schedule()
+    finally:
+        L.CAPACITY_FACTOR = saved
+    v = cfg.vocab_size
+    choice = lambda t: t[..., :v].argmax(-1).tolist()
+    err = float((dec_k - full_k).abs().max())
+    log(f"  jamba REDUCED schedule: launches {launches}; decode vs full "
+        f"max |diff| {err:.3g} (2e-2); kernels vs plain {rel(dec_k, dec_p):.3g}")
+    if choice(dec_k) != choice(dec_p) or choice(full_k) != choice(full_p):
+        raise AssertionError("jamba: kernel and plain paths chose "
+                             "differently")
+    if not torch.allclose(dec_k, full_k, rtol=2e-2, atol=2e-2):
+        raise AssertionError("jamba: decode differs from the full forward")
+
+    lens = torch.randint(3, 21, (8,), generator=gen).tolist()
+    prompts = [torch.randint(0, v, (n,), generator=gen) for n in lens]
+
+    def serve_once():
+        eng = ServeEngine(cfg, params, batch_slots=4, max_len=64,
+                          device=device)
+        done = eng.serve([Request(i, p, 8) for i, p in enumerate(prompts)])
+        return eng, [r.out_tokens for r in sorted(done, key=lambda r: r.rid)]
+
+    reset_counts(kernels)
+    eng, got = serve_once()
+    launches = dispatch_counts(kernels, "jamba serve", {
+        "flash_attention": n_attn * eng.n_prefills,
+        "decode_attention": n_attn * eng.n_decode_steps}, total)
+    with plain_attention(ops, ref):
+        _, want = serve_once()
+    log(f"  jamba REDUCED ServeEngine(4 slots): launches {launches}; tokens "
+        f"{got[:2]}...")
+    if got != want:
+        raise AssertionError("jamba: served tokens differ between kernel "
+                             "and plain paths")
+
+
+def mamba_full_width(device="cuda", d_model=None, prompt_len=MAMBA_PROMPT):
+    """(e) one mamba layer at jamba's full width (d 8192, d_inner 16384,
+    d_state 16, dt_rank 256, conv 4), bf16: a prompt_len-token prefill
+    from a zero state, then MAMBA_STEPS decode steps carrying the state;
+    the same in f64 (f64 weights and input). max |bf16 - f64| / max |f64|
+    over all outputs within MAMBA_BF16_BAND."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import cache as cache_lib
+    from repro_torch.models import init_tree, mamba, tree_map
+
+    cfg = get_arch("jamba-1.5-large-398b")
+    if d_model:
+        cfg = dataclasses.replace(cfg, d_model=d_model, ssm_dt_rank=64)
+    p = init_tree(mamba.mamba_defs(cfg, "mamba"), SEED, cfg, device)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    x = torch.randn(1, prompt_len + MAMBA_STEPS, cfg.d_model, generator=gen)
+    x = x.to(device, torch.bfloat16)
+
+    def run(cfg, p):
+        dt = torch.float64 if cfg.dtype == "float64" else torch.bfloat16
+        state = tree_map(lambda d: torch.zeros(
+            d.shape, device=device, dtype=cache_lib.state_dtype(cfg)
+            if d.name.endswith(".h") else dt),
+            mamba.mamba_state_defs(cfg, 1, "m"))
+        y, state = mamba.mamba_forward(x[:, :prompt_len].to(dt), p, cfg,
+                                       state)
+        outs = [y]
+        for t in range(prompt_len, prompt_len + MAMBA_STEPS):
+            y, state = mamba.mamba_forward(x[:, t:t + 1].to(dt), p, cfg,
+                                           state)
+            outs.append(y)
+        return torch.cat(outs, 1).double(), state["h"].double()
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y16, h16 = run(cfg, p)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        y64, h64 = run(dataclasses.replace(cfg, dtype="float64"),
+                       tree_map(lambda t: t.double(), p))
+    err, err_h = rel(y16, y64), rel(h16, h64)
+    log(f"  mamba layer d {cfg.d_model} d_inner {cfg.d_inner}: {prompt_len}"
+        f"-token prefill + {MAMBA_STEPS} steps in bf16 {sec:.3f}s; vs f64: "
+        f"outputs {err:.3g}, final state {err_h:.3g} (band "
+        f"{MAMBA_BF16_BAND})")
+    if not (torch.isfinite(y16).all() and err <= MAMBA_BF16_BAND):
+        raise AssertionError(f"mamba layer: bf16 outputs {err:.3g} of their "
+                             f"scale from f64")
+    return {"outputs_f64": err, "state_f64": err_h}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3348,6 +3805,32 @@ def main() -> int:
     gateway_entry_points(kernels, launches15)
     log(f"  launches on the gateway path (phase 15): {launches15}; phase "
         f"15 took {time.perf_counter() - t15:.1f}s")
+    torch.cuda.empty_cache()
+
+    log("phase 16: the rest of the zoo on the fused engine: rwkv6-3b and "
+        "whisper-tiny at full width and depth, qwen2-vl-72b at full width "
+        f"({QWEN_VL_LAYERS} layers), REDUCED jamba-1.5-large-398b and one "
+        "mamba layer at its full width")
+    launches16 = {name: 0 for name in kernels}
+    t16 = time.perf_counter()
+    rwkv_serve(kernels, launches16)
+    torch.cuda.empty_cache()
+    rwkv_routes()
+    torch.cuda.empty_cache()
+    whisper_check(ops, ref, kernels, launches16)
+    torch.cuda.empty_cache()
+    qwen_vl_check(ops, ref, kernels, launches16)
+    torch.cuda.empty_cache()
+    jamba_checks(ops, ref, kernels, launches16)
+    mamba_full_width()
+    torch.cuda.empty_cache()
+    log(f"  launches on the zoo's paths (phase 16): {launches16}; phase 16 "
+        f"took {time.perf_counter() - t16:.1f}s")
+    attention = ("decode_attention", "flash_attention")
+    if not all(launches16[k] for k in attention) or any(
+            n for k, n in launches16.items() if k not in attention):
+        raise AssertionError(f"phase 16 launches {launches16}: want both "
+                             f"attention kernels and no other")
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
@@ -3395,6 +3878,7 @@ def main() -> int:
             "moe_swa_launches": moe_swa[name],
             "dispatch_launches": launches14[name],
             "gateway_launches": launches15[name],
+            "zoo_launches": launches16[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -13,7 +13,7 @@ census (`core.census`) traces their fake CPU twins, or, for a program that
 reads values on the host, CPU copies. Nothing of this path runs on the
 card and no kernel is launched: every number is a count of the program,
 scored on a modelled machine. The reference's train-step row comes with
-the port of `train/` (ROADMAP Queue 1 item 18).
+the port of `train/` (ROADMAP Queue 1 item 18b).
 """
 
 from __future__ import annotations

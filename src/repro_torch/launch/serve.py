@@ -1,10 +1,14 @@
 """Serving launcher: batched continuous-batching decode over a model.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        --arch granite-3-8b --requests 8 --slots 4 --max-new 16
+        --arch rwkv6-3b --requests 8 --slots 4 --max-new 16
 
-Weights are random, drawn from `--seed` on the device. `--device`
-defaults to the card; `--device cpu --reduced` runs the plain path.
+Every architecture of the zoo serves on the fused engine (rwkv6-3b,
+jamba-1.5-large-398b, whisper-tiny and qwen2-vl-72b among them; whisper's
+requests are token prompts, so its cross-attention reads the zero cross
+cache, as in the reference). Weights are random, drawn from `--seed` on
+the device. `--device` defaults to the card; `--device cpu --reduced`
+runs the plain path.
 `--engine dispatch` serves through the offload planner's plans
 (`serve.dispatch_engine`: decode over the decode DAG, prefill chunked by
 `--prefill-chunk` over the prefill DAG) instead of the fused forward.

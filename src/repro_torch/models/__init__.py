@@ -1,7 +1,8 @@
-"""repro_torch.models — attention decoders (dense or MoE MLP) in PyTorch."""
+"""repro_torch.models — the model zoo in PyTorch: attention decoders (dense
+or MoE MLP), the jamba hybrid, RWKV-6, whisper and qwen2-vl."""
 
 from .cache import cache_defs, cache_width, init_cache
 from .config import LayerSpec, ModelConfig, torch_dtype
 from .sharding import ParamDef, is_def, stack_defs, tree_map
-from .transformer import (forward, init_params, param_defs,
+from .transformer import (forward, init_params, init_tree, param_defs,
                           quantize_moe_params)

@@ -1,4 +1,5 @@
-"""Decode caches: full and sliding-window-ring KV for attention layers.
+"""Decode caches: full and sliding-window-ring KV, cross-attention KV, and
+the recurrent states of mamba and RWKV layers.
 
 Counterpart of `repro.models.cache`. Slot -> position math derives from
 one count of tokens written, so no positions array is stored:
@@ -18,6 +19,8 @@ import torch
 
 from ..device import resolve_device
 from .config import ModelConfig, torch_dtype
+from .mamba import mamba_state_defs
+from .rwkv import rwkv_state_defs
 from .sharding import ParamDef, stack_defs, tree_map
 
 
@@ -31,6 +34,16 @@ def kv_defs(cfg: ModelConfig, batch: int, width: int, name: str) -> dict:
     }
 
 
+def cross_kv_defs(cfg: ModelConfig, batch: int, name: str) -> dict:
+    kvh, hd = cfg.n_kv_heads, cfg.hd
+    return {
+        "k": ParamDef((batch, cfg.encoder_seq, kvh, hd),
+                      ("batch", "cache_seq", None, None), f"{name}.ck", "zeros"),
+        "v": ParamDef((batch, cfg.encoder_seq, kvh, hd),
+                      ("batch", "cache_seq", None, None), f"{name}.cv", "zeros"),
+    }
+
+
 def cache_width(cfg: ModelConfig, max_len: int) -> int:
     """Ring-buffer width: the window if it is smaller than the context."""
     if cfg.sliding_window and cfg.sliding_window < max_len:
@@ -39,32 +52,53 @@ def cache_width(cfg: ModelConfig, max_len: int) -> int:
 
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> dict:
-    """ParamDef tree for the whole decode cache (stacked over blocks).
-    Attention layers only: SSM states and cross-attention KV come with the
-    zoo (ROADMAP Queue 1, item 18)."""
+    """ParamDef tree for the whole decode cache (stacked over blocks): KV
+    for attention layers (plus the cross-attention KV under `cross` where
+    the layer has it), `h` and `conv` for mamba, `wkv`, `shift_tm` and
+    `shift_cm` for RWKV."""
     width = cache_width(cfg, max_len)
     per_pos = []
     for i, spec in enumerate(cfg.layer_pattern()):
-        if spec.kind != "attn" or spec.cross_attn:
-            raise NotImplementedError(
-                f"{cfg.name}: only self-attention layer caches are ported; "
-                "mamba/rwkv states and cross-attention KV are ROADMAP "
-                "Queue 1, item 18")
-        per_pos.append(kv_defs(cfg, batch, width, f"cache.l{i}"))
+        name = f"cache.l{i}"
+        if spec.kind == "attn":
+            d = kv_defs(cfg, batch, width, name)
+            if spec.cross_attn:
+                d.update(cross=cross_kv_defs(cfg, batch, name))
+        elif spec.kind == "mamba":
+            d = mamba_state_defs(cfg, batch, name)
+        elif spec.kind == "rwkv":
+            d = rwkv_state_defs(cfg, batch, name)
+        else:
+            d = {}
+        per_pos.append(d)
     return {
         "index": ParamDef((), (), "cache.index", "zeros", "int32"),
         "layers": [stack_defs(d, cfg.n_blocks) for d in per_pos],
     }
 
 
+def state_dtype(cfg: ModelConfig) -> torch.dtype:
+    """The type of the recurrent states (RWKV's `wkv`, mamba's `h`): f32,
+    as the reference keeps them, or f64 in an f64 model."""
+    return torch.promote_types(torch_dtype(cfg.dtype), torch.float32)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Zero-initialized cache on `device` (None: the card)."""
+    """Zero-initialized cache on `device` (None: the card). The reference's
+    dtype rule: the recurrent states in `state_dtype`, every other leaf in
+    the model's dtype."""
     dev = resolve_device(device)
-    return tree_map(
-        lambda d: torch.zeros(d.shape, dtype=torch_dtype(d.dtype or cfg.dtype),
-                              device=dev),
-        cache_defs(cfg, batch, max_len))
+
+    def mk(d: ParamDef):
+        if d.dtype:
+            dt = torch_dtype(d.dtype)
+        elif "wkv" in d.name or d.name.endswith(".h"):
+            dt = state_dtype(cfg)
+        else:
+            dt = torch_dtype(cfg.dtype)
+        return torch.zeros(d.shape, dtype=dt, device=dev)
+    return tree_map(mk, cache_defs(cfg, batch, max_len))
 
 
 def slot_positions(count, width: int):

@@ -1,6 +1,7 @@
-"""Transformer building blocks: norms, RoPE, GQA attention projections,
-decode attention over the KV cache, the dense MLP and the routed MoE layer
-(capacity dispatch, expert FFN in float or int8, combine, shared experts).
+"""Transformer building blocks: norms, RoPE and M-RoPE, GQA attention
+projections, decode attention over the KV cache, the dense MLP and the
+routed MoE layer (capacity dispatch, expert FFN in float or int8, combine,
+shared experts).
 
 Counterpart of `repro.models.layers`. Weights are declared as `ParamDef`
 with the same shapes: q/k/v weights stay 3-D (d_model, heads, head_dim).
@@ -51,7 +52,7 @@ def apply_norm(x, p, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------- #
-# RoPE
+# RoPE / M-RoPE
 # --------------------------------------------------------------------- #
 
 def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
@@ -61,11 +62,19 @@ def rope_freqs(cfg: ModelConfig, device=None) -> torch.Tensor:
 
 
 def rope_sincos(positions, cfg: ModelConfig):
-    """positions: (..., S) int -> sin/cos (..., S, hd/2) f32 (1-D RoPE)."""
-    if cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE (qwen2-vl) is not ported yet: ROADMAP Queue 1, item 18")
-    t = positions.float()[..., None] * rope_freqs(cfg, positions.device)
+    """positions: (..., S) int -> sin/cos (..., S, hd/2) f32.
+
+    For M-RoPE (qwen2-vl), positions is (3, B, S): temporal, height and
+    width streams. The half head dim is split into sections of hd2//3,
+    hd2//3 and the rest, each rotated by its own stream; text tokens
+    (t == h == w) reduce to 1-D RoPE."""
+    freqs = rope_freqs(cfg, positions.device)
+    t = positions.float()[..., None] * freqs
+    if cfg.rope == "mrope":                         # t: (3,B,S,hd/2)
+        hd2 = freqs.shape[0]
+        s1, s2 = hd2 // 3, 2 * (hd2 // 3)
+        t = torch.cat([t[0, ..., :s1], t[1, ..., s1:s2], t[2, ..., s2:]],
+                      dim=-1)
     return torch.sin(t), torch.cos(t)
 
 

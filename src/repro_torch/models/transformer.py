@@ -1,10 +1,14 @@
-"""Model assembly: params and forward (train / prefill / decode) for
-attention decoders with dense or routed-MoE MLPs.
+"""Model assembly: params and forward (train / prefill / decode) for every
+architecture of the zoo: attention decoders with dense or routed-MoE MLPs,
+the jamba hybrid (mamba and attention layers), RWKV-6, the whisper
+encoder-decoder (encoder, cross-attention) and qwen2-vl (M-RoPE, `embeds`
+input).
 
 Counterpart of `repro.models.transformer`. The reference scans over
 blocks under `jax.checkpoint`; here a plain Python loop walks the blocks,
-and each block's cache slice is a view into the stacked cache, written in
-place.
+and each block's cache slice is a tree of views into the stacked cache
+(the nested `cross` dict included), written in place: KV rows by the cache
+writers, recurrent states by `copy_`.
 
 Forward modes:
   * cache=None, S tokens      -> training / eval forward
@@ -16,7 +20,10 @@ flash-attention kernel, decode through the decode-attention kernel, full
 or sliding-window (the cache is then a ring as wide as the window). MoE
 layers (mixtral, qwen2-moe) run `layers.moe_forward`, with int8 experts
 under `cfg.quant == "int8"`; their load-balance losses sum into `aux`.
-Mamba, RWKV, cross-attention and M-RoPE raise `NotImplementedError`.
+The whisper encoder's self-attention and the cross-attention of a prefill
+run the flash kernel without the causal mask; a decode step's
+cross-attention runs the decode kernel over the whole cached encoder K/V.
+Mamba and RWKV layers are plain PyTorch (`mamba`, `rwkv`): no kernel.
 """
 
 from __future__ import annotations
@@ -30,9 +37,9 @@ from ..kernels import ops
 from . import cache as cache_lib
 from . import layers as L
 from .config import LayerSpec, ModelConfig, torch_dtype
+from .mamba import mamba_defs, mamba_forward
+from .rwkv import rwkv_channel_mix, rwkv_defs, rwkv_time_mix
 from .sharding import ParamDef, stack_defs, tree_map
-
-_ZOO = "ROADMAP Queue 1, item 18"
 
 
 # --------------------------------------------------------------------- #
@@ -40,14 +47,18 @@ _ZOO = "ROADMAP Queue 1, item 18"
 # --------------------------------------------------------------------- #
 
 def layer_defs(cfg: ModelConfig, spec: LayerSpec, name: str) -> dict:
-    if spec.kind != "attn":
-        raise NotImplementedError(
-            f"{cfg.name}: {spec.kind} layers are not ported yet ({_ZOO})")
-    if spec.cross_attn:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention is not ported yet ({_ZOO})")
-    d = {"ln1": L.norm_defs(cfg, f"{name}.ln1"),
-         "attn": L.attn_defs(cfg, f"{name}.attn")}
+    d = {"ln1": L.norm_defs(cfg, f"{name}.ln1")}
+    if spec.kind == "attn":
+        d["attn"] = L.attn_defs(cfg, f"{name}.attn")
+        if spec.cross_attn:
+            d["ln_cross"] = L.norm_defs(cfg, f"{name}.ln_cross")
+            d["cross"] = L.attn_defs(cfg, f"{name}.cross")
+    elif spec.kind == "mamba":
+        d["mamba"] = mamba_defs(cfg, f"{name}.mamba")
+    elif spec.kind == "rwkv":
+        d["rwkv"] = rwkv_defs(cfg, f"{name}.rwkv")
+        d["ln2"] = L.norm_defs(cfg, f"{name}.ln2")
+        return d
     if spec.mlp != "none":
         d["ln2"] = L.norm_defs(cfg, f"{name}.ln2")
         d["mlp"] = (L.moe_defs(cfg, f"{name}.moe") if spec.mlp == "moe"
@@ -56,9 +67,6 @@ def layer_defs(cfg: ModelConfig, spec: LayerSpec, name: str) -> dict:
 
 
 def param_defs(cfg: ModelConfig) -> dict:
-    if cfg.encoder_layers:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder is not ported yet ({_ZOO})")
     v, dm = cfg.padded_vocab, cfg.d_model
     defs = {
         "embed": ParamDef((v, dm), (None, "tp"), "embed", "normal"),
@@ -69,15 +77,28 @@ def param_defs(cfg: ModelConfig) -> dict:
     defs["layers"] = [
         stack_defs(layer_defs(cfg, spec, f"l{i}"), cfg.n_blocks)
         for i, spec in enumerate(cfg.layer_pattern())]
+    if cfg.encoder_layers:
+        enc_spec = LayerSpec("attn", "dense", cross_attn=False)
+        defs["encoder"] = {
+            "layers": stack_defs(layer_defs(cfg, enc_spec, "enc"),
+                                 cfg.encoder_layers),
+            "final_norm": L.norm_defs(cfg, "enc.final_norm"),
+        }
     return defs
 
 
 def init_params(rng, cfg: ModelConfig, device=None) -> dict:
-    """Random parameters on `device` (None: the card). `rng` is a
-    `torch.Generator` on that device or an int seed for one. Leaves are
-    drawn in the reference's tree order with its rule: normal with scale
-    1/sqrt(fan_in), fan_in = shape[-2] of the stacked tensor (0.02 for
-    "small"), drawn in f32 and cast to the parameter dtype."""
+    """Random parameters on `device` (None: the card): `init_tree` of
+    `param_defs(cfg)`."""
+    return init_tree(param_defs(cfg), rng, cfg, device)
+
+
+def init_tree(defs, rng, cfg: ModelConfig, device=None) -> dict:
+    """Random tensors for a `ParamDef` tree on `device` (None: the card).
+    `rng` is a `torch.Generator` on that device or an int seed for one.
+    Leaves are drawn in the reference's tree order with its rule: normal
+    with scale 1/sqrt(fan_in), fan_in = shape[-2] of the (stacked) tensor
+    (0.02 for "small"), drawn in f32 and cast to the parameter dtype."""
     dev = resolve_device(device)
     gen = (rng if isinstance(rng, torch.Generator)
            else torch.Generator(device=dev).manual_seed(int(rng)))
@@ -94,7 +115,7 @@ def init_params(rng, cfg: ModelConfig, device=None) -> dict:
                           device=dev)
         return arr.mul_(scale).to(dt)
 
-    return tree_map(mk, param_defs(cfg))
+    return tree_map(mk, defs)
 
 
 def quantize_moe_params(params, cfg: ModelConfig) -> dict:
@@ -126,37 +147,103 @@ def quantize_moe_params(params, cfg: ModelConfig) -> dict:
 # --------------------------------------------------------------------- #
 
 def _attention(x, p, cfg: ModelConfig, rope, kv_cache, index, width):
-    """Returns (attn_out, new_kv_cache)."""
+    """Self-attention; a prefill or decode step writes its K/V into
+    `kv_cache` in place. Returns attn_out."""
     s = x.shape[1]
     sin, cos = rope
     q, k, v = L._qkv(x, p, cfg, rope_sin=sin, rope_cos=cos)
 
     if kv_cache is None or s > 1:   # training, or prefill into a fresh cache
-        new_kv = (None if kv_cache is None
-                  else cache_lib.write_prefill(kv_cache, k, v))
+        if kv_cache is not None:
+            cache_lib.write_prefill(kv_cache, k, v)
         o = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.sliding_window)
-        return L.attn_out(o, p, x.dtype), new_kv
+        return L.attn_out(o, p, x.dtype)
 
-    new_kv = cache_lib.write_decode(kv_cache, k, v, index, width)
-    o = L.cached_attention(q, new_kv["k"], new_kv["v"], index, cfg)
-    return L.attn_out(o, p, x.dtype), new_kv
+    cache_lib.write_decode(kv_cache, k, v, index, width)
+    o = L.cached_attention(q, kv_cache["k"], kv_cache["v"], index, cfg)
+    return L.attn_out(o, p, x.dtype)
+
+
+def _cross_attention(x, p, cfg: ModelConfig, cross_cache, encoder_out):
+    """Whisper-style cross-attention, no mask. With `encoder_out` (a
+    prefill, or a training forward) the encoder K/V are computed and, if
+    there is a cache, written into it; without it they are read from the
+    cache. One query (a decode step) runs the decode kernel over all
+    `encoder_seq` cached rows, more run the flash kernel."""
+    q = L._proj(x, p["wq"])
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    if encoder_out is not None:
+        k, v = L._proj(encoder_out, p["wk"]), L._proj(encoder_out, p["wv"])
+        if "bk" in p:
+            k = k + p["bk"].to(x.dtype)
+            v = v + p["bv"].to(x.dtype)
+        if cross_cache is not None:
+            cache_lib.write_prefill(cross_cache, k, v)
+    else:
+        k, v = cross_cache["k"].to(x.dtype), cross_cache["v"].to(x.dtype)
+    if q.shape[1] == 1:
+        o = ops.decode_attention(q[:, 0].contiguous(), k, v,
+                                 k.shape[1])[:, None]
+    else:
+        o = ops.flash_attention(q, k, v, causal=False)
+    return L.attn_out(o, p, x.dtype)
 
 
 # --------------------------------------------------------------------- #
 # block and stack
 # --------------------------------------------------------------------- #
 
+def _rwkv_zero_state(x, cfg: ModelConfig) -> dict:
+    b = x.shape[0]
+    hs = cfg.rwkv_head_size
+    return {"wkv": torch.zeros((b, cfg.n_rwkv_heads, hs, hs),
+                               dtype=cache_lib.state_dtype(cfg),
+                               device=x.device),
+            "shift_tm": x.new_zeros((b, 1, cfg.d_model)),
+            "shift_cm": x.new_zeros((b, 1, cfg.d_model))}
+
+
+def _write_state(cache_slice, new_state) -> None:
+    """Copy a layer's new recurrent state into its cache views (in place:
+    a rebound name would never reach the stacked cache)."""
+    for name, t in new_state.items():
+        cache_slice[name].copy_(t)
+
+
 def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
-                  cache_slice, index, width):
-    """One pattern position. Returns (x, new_cache_slice, aux): aux is the
-    MoE layer's load-balance loss, a Python 0.0 for a dense layer (no
-    device op)."""
+                  cache_slice, index, width, encoder_out=None):
+    """One pattern position. `cache_slice` (None without a cache) is the
+    layer's tree of cache views, updated in place. Returns (x, aux): aux
+    is the MoE layer's load-balance loss, a Python 0.0 for any other
+    layer (no device op)."""
     aux = 0.0
     h = L.apply_norm(x, p["ln1"], cfg)
-    o, new_cache = _attention(h, p["attn"], cfg, rope, cache_slice, index,
-                              width)
-    x = x + o
+    if spec.kind == "attn":
+        x = x + _attention(h, p["attn"], cfg, rope, cache_slice, index,
+                           width)
+        if spec.cross_attn:
+            h = L.apply_norm(x, p["ln_cross"], cfg)
+            cc = None if cache_slice is None else cache_slice["cross"]
+            x = x + _cross_attention(h, p["cross"], cfg, cc, encoder_out)
+    elif spec.kind == "mamba":
+        o, state = mamba_forward(h, p["mamba"], cfg, cache_slice)
+        x = x + o
+        if cache_slice is not None:
+            _write_state(cache_slice, state)
+    elif spec.kind == "rwkv":
+        state = (cache_slice if cache_slice is not None
+                 else _rwkv_zero_state(x, cfg))
+        o, tm_state = rwkv_time_mix(h, p["rwkv"], cfg, state)
+        x = x + o
+        h2 = L.apply_norm(x, p["ln2"], cfg)
+        o2, cm_state = rwkv_channel_mix(h2, p["rwkv"], cfg, state)
+        x = x + o2
+        if cache_slice is not None:
+            _write_state(cache_slice, {**tm_state, **cm_state})
+        return x, aux
+
     if spec.mlp != "none":
         h = L.apply_norm(x, p["ln2"], cfg)
         if spec.mlp == "moe":
@@ -164,26 +251,56 @@ def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
         else:
             o = L.mlp_forward(h, p["mlp"], cfg)
         x = x + o
-    return x, new_cache, aux
+    return x, aux
 
 
 def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
-                  width):
+                  width, encoder_out=None):
     """Walk the blocks in order, summing the layers' aux losses in the
     reference scan's order (a Python 0.0 while no MoE layer has run).
-    Cache slices are views into the stacked (blocks, B, W, KVH, hd)
-    tensors, so the writes land in place."""
+    Each layer's cache slice is a tree of views into the stacked
+    (blocks, B, ...) tensors, so its writes land in place."""
     pattern = cfg.layer_pattern()
     aux = 0.0
     for blk in range(cfg.n_blocks):
         for i, spec in enumerate(pattern):
             lp = tree_map(lambda t: t[blk], params["layers"][i])
-            sl = (None if cache_layers is None else
-                  {"k": cache_layers[i]["k"][blk],
-                   "v": cache_layers[i]["v"][blk]})
-            x, _, a = block_forward(x, spec, lp, cfg, rope, sl, index, width)
+            sl = (None if cache_layers is None
+                  else tree_map(lambda t: t[blk], cache_layers[i]))
+            x, a = block_forward(x, spec, lp, cfg, rope, sl, index, width,
+                                 encoder_out)
             aux = aux + a
     return x, cache_layers, aux
+
+
+# --------------------------------------------------------------------- #
+# encoder (whisper backbone; frame embeddings come from the stub frontend)
+# --------------------------------------------------------------------- #
+
+def encoder_forward(embeds, params, cfg: ModelConfig):
+    """The whisper encoder over frame embeddings (B, encoder_seq, D): a
+    sinusoid added, then pre-norm attention layers without RoPE and
+    without a mask, and a final norm."""
+    x = embeds + _sinusoid(cfg.encoder_seq, cfg.d_model,
+                           embeds.device).to(embeds.dtype)
+    for i in range(cfg.encoder_layers):
+        p = tree_map(lambda t: t[i], params["layers"])
+        h = L.apply_norm(x, p["ln1"], cfg)
+        q, k, v = L._qkv(h, p["attn"], cfg)
+        o = ops.flash_attention(q, k, v, causal=False)
+        x = x + L.attn_out(o, p["attn"], x.dtype)
+        h = L.apply_norm(x, p["ln2"], cfg)
+        x = x + L.mlp_forward(h, p["mlp"], cfg)
+    return L.apply_norm(x, params["final_norm"], cfg)
+
+
+def _sinusoid(s, d, device=None):
+    """(1, s, d) f32: sin of position / 10000^(2i/d) in the first half,
+    cos in the second."""
+    pos = torch.arange(s, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / torch.pow(10000.0, dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], -1)[None]
 
 
 # --------------------------------------------------------------------- #
@@ -197,15 +314,22 @@ def mask_vocab_padding(logits, cfg: ModelConfig):
     return logits
 
 
-def forward(params, cfg: ModelConfig, *, tokens, positions=None,
-            cache=None):
-    """Returns (logits, new_cache, aux). With a cache, the cache tensors
-    are updated in place and `new_cache` shares them."""
-    if cfg.rope == "mrope":
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE is not ported yet ({_ZOO})")
-    b, s = tokens.shape
-    x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+            positions=None, mrope_positions=None, cache=None,
+            encoder_embeds=None):
+    """Returns (logits, new_cache, aux). Input is `tokens` (B, S) or
+    `embeds` (B, S, D); `encoder_embeds` (B, encoder_seq, D) runs the
+    encoder (whisper) and, with a cache, fills its cross K/V; without
+    them a decode step reads that cache. Under M-RoPE, `mrope_positions`
+    (3, B, S) gives the three position streams (default: `positions` in
+    all three). With a cache, the cache tensors are updated in place and
+    `new_cache` shares them."""
+    if embeds is not None:
+        x = embeds.to(torch_dtype(cfg.dtype))
+        b, s = x.shape[:2]
+    else:
+        b, s = tokens.shape
+        x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
     dev = x.device
 
     index = (cache["index"] if cache is not None
@@ -213,21 +337,32 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
     if positions is None:
         positions = index + torch.arange(s, dtype=torch.int32, device=dev)
         positions = positions[None, :].expand(b, s)
-    rope = ((None, None) if cfg.rope == "none"
-            else L.rope_sincos(positions, cfg))
+    if cfg.rope == "mrope":
+        if mrope_positions is None:
+            mrope_positions = positions[None].expand(3, b, s)
+        rope = L.rope_sincos(mrope_positions, cfg)
+    elif cfg.rope == "none":
+        rope = (None, None)
+    else:
+        rope = L.rope_sincos(positions, cfg)
+
+    encoder_out = None
+    if cfg.encoder_layers and encoder_embeds is not None:
+        encoder_out = encoder_forward(
+            encoder_embeds.to(torch_dtype(cfg.dtype)), params["encoder"], cfg)
 
     width = 0
     cache_layers = None
     attn_index = index
     if cache is not None:
         cache_layers = cache["layers"]
-        width = cache_layers[0]["k"].shape[2]   # (blocks, B, W, KVH, hd)
+        width = _cache_seq_width(cache_layers)
         if s == 1:
             # per-row index (continuous batching: slots at skewed positions)
             attn_index = positions[:, -1]
 
     x, new_layers, aux = stack_forward(x, params, cfg, rope, cache_layers,
-                                       attn_index, width)
+                                       attn_index, width, encoder_out)
 
     x = L.apply_norm(x, params["final_norm"], cfg)
     wv = params["embed"] if cfg.tie_embeddings else params["unembed"]
@@ -244,3 +379,11 @@ def forward(params, cfg: ModelConfig, *, tokens, positions=None,
     if not torch.is_tensor(aux):                           # no MoE layer
         aux = torch.zeros((), dtype=torch.float32, device=dev)
     return logits, new_cache, aux
+
+
+def _cache_seq_width(cache_layers) -> int:
+    """The self-attention cache's width; 0 when no layer has one (RWKV)."""
+    for sl in cache_layers:
+        if "k" in sl:
+            return sl["k"].shape[2]   # (blocks, B, W, KVH, hd)
+    return 0

@@ -96,6 +96,12 @@ def _check_dispatchable(cfg: ModelConfig) -> None:
         raise ValueError(
             f"engine='dispatch' supports dense attention decoders (dense "
             f"or routed-MoE MLPs); {cfg.name} has pattern {pattern}")
+    if cfg.rope == "mrope":
+        # the reference's dispatch steps pass (B, S) positions where M-RoPE
+        # takes (3, B, S) streams (its indexing clamps the missing ones)
+        raise ValueError(
+            f"engine='dispatch' has no M-RoPE position streams; {cfg.name} "
+            "uses M-RoPE")
     if pattern[0].mlp == "moe" and cfg.n_shared_experts:
         raise ValueError(
             f"engine='dispatch' MoE support covers routed experts only "

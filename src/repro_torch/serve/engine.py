@@ -37,6 +37,19 @@ def sample(logits, generator=None, temperature: float = 0.0):
     return out.reshape(probs.shape[:-1]).to(torch.int32)
 
 
+def _scatter_slot(dst, src, slot: int) -> None:
+    """Copy row 0 of every (blocks, 1, ...) leaf of the cache tree `src`
+    into row `slot` of the matching (blocks, B, ...) leaf of `dst`."""
+    if isinstance(dst, dict):
+        for name in dst:
+            _scatter_slot(dst[name], src[name], slot)
+    elif isinstance(dst, (list, tuple)):
+        for d, s in zip(dst, src):
+            _scatter_slot(d, s, slot)
+    else:
+        dst[:, slot] = src[:, 0]
+
+
 @dataclasses.dataclass
 class Request:
     """One serving request: an int prompt, a new-token budget, and the
@@ -167,17 +180,16 @@ class ServeEngine:
     @torch.no_grad()
     def _prefill_one(self, tokens, slot: int):
         """Prefill one slot: run the single sequence through a one-slot
-        cache, then copy its KV rows into row `slot` of the batched cache.
-        Returns the last position's logits."""
+        cache, then copy every leaf of it (KV rows, cross K/V, recurrent
+        states) into row `slot` of the batched cache. Returns the last
+        position's logits."""
         if self._dispatch_prefill is not None:
             return self._dispatch_prefill(self.params, self.cache, tokens,
                                           slot)
         one = init_cache(self.cfg, 1, self.max_len, self.device)
         logits, one, _ = forward(self.params, self.cfg, tokens=tokens[None],
                                  cache=one)
-        for dst, src in zip(self.cache["layers"], one["layers"]):
-            for name in dst:                    # (blocks, B, W, KVH, hd)
-                dst[name][:, slot] = src[name][:, 0]
+        _scatter_slot(self.cache["layers"], one["layers"], slot)
         self.cache["index"] = torch.maximum(self.cache["index"], one["index"])
         return logits[0, -1]
 

@@ -19,6 +19,8 @@ from repro_torch.models import param_defs as t_param_defs
 DENSE = ["granite-3-8b", "deepseek-coder-33b", "llama3-405b",
          "starcoder2-7b"]
 MOE = ["mixtral-8x7b", "qwen2-moe-a2.7b"]
+# mamba/attention hybrid, RWKV-6, encoder-decoder, M-RoPE
+ZOO = ["jamba-1.5-large-398b", "rwkv6-3b", "whisper-tiny", "qwen2-vl-72b"]
 
 
 def flat(tree, prefix=""):
@@ -42,18 +44,12 @@ def _def_table(defs, cfg):
 
 
 @pytest.mark.parametrize("table", ["ARCHS", "REDUCED"])
-@pytest.mark.parametrize("name", DENSE + MOE)
+@pytest.mark.parametrize("name", DENSE + MOE + ZOO)
 def test_param_defs_match_reference(table, name):
     ref_cfg = (ARCHS if table == "ARCHS" else REDUCED)[name]
     cfg = (T_ARCHS if table == "ARCHS" else T_REDUCED)[name]
     assert _def_table(t_param_defs(cfg), cfg) == \
         _def_table(param_defs(ref_cfg), ref_cfg)
-
-
-def test_unported_layers_raise():
-    for name in ("jamba-1.5-large-398b", "rwkv6-3b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            t_param_defs(T_REDUCED[name])
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -64,6 +60,14 @@ def test_bridge_round_trips_bits(dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("name", MOE)
 def test_bridge_round_trips_moe_bits(name, dtype):
+    _round_trip(name, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ZOO)
+def test_bridge_round_trips_zoo_bits(name, dtype):
+    """The new leaves (mamba, RWKV, the encoder subtree, cross-attention,
+    qwen2-vl's biases) cross bit for bit."""
     _round_trip(name, dtype)
 
 

@@ -78,12 +78,6 @@ def test_rope(dtype):
     _close(TL.apply_rope(qt, st, ct), JL.apply_rope(qj, sj, cj), dtype)
 
 
-def test_mrope_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.rope_sincos(torch.zeros(1, 3, dtype=torch.int32),
-                       T_REDUCED["qwen2-vl-72b"])
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("name", ARCHS)
 def test_qkv_and_attn_out(name, dtype):
