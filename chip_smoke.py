@@ -259,6 +259,26 @@ Phases, each of which raises (exit code != 0) on failure:
    (d 8192, d_inner 16384), bf16, a 1000-token prefill and 8 steps, within
    MAMBA_BF16_BAND of an f64 run of the same layer.
 
+17. Training (PR 23): (a) the flash backward kernel on BWD_CASES in f32
+   and bf16 (granite's train_4k shape, scores in the hundreds, a causal
+   window, whisper's encoder and cross-attention, a ragged S): dq, dk,
+   dv within BWD_BAND of f64 or no further than the plain version in the
+   same dtype, two launches bit-equal, the forward's log-sum-exp within
+   LSE_TOL of torch.logsumexp in f64 and its output bits unchanged;
+   timed at granite's shape (graph replay and launched) beside its bound
+   (10 flops per unmasked pair and head dim: 2.5x the forward's) and
+   scaled_dot_product_attention forward plus backward. (b) granite-3-8b
+   at full width, 2 layers, f32: `loss_fn`'s gradients through the
+   kernels, through the plain primitives on the card and in f64, every
+   leaf within GRAD_F64_FACTOR of the plain path's distance. (c) the main
+   training path: granite-3-8b at published widths, 8 layers, bf16,
+   TrainLoop on B 2 x 4096 for 6 steps, then a run that fails at step 4
+   and resumes from the step-3 checkpoint, bit-equal at the end; 16
+   flash forward (8 plus 8 remat) and 8 backward launches a step; ms/step,
+   tokens/s, peak memory, losses (a `{"train": ...}` JSON line). (d)
+   `python -m repro_torch.launch.train` on whisper-tiny (B 4, seq 448),
+   4 steps, then 6: resumes; 24 forward and 12 backward launches a step.
+
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
 for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
@@ -267,8 +287,10 @@ and 10 together, and its `moe_swa_launches` those of the counted runs of
 phases 11 and 12 (the two qwen2-moe serves, the kernel runs of the
 wrapping schedules and starcoder2-7b's full-width run), and its
 `dispatch_launches` those of phase 14's counted runs, its
-`gateway_launches` those of phase 15, and its `zoo_launches` those of
-phase 16's counted runs. The last line is
+`gateway_launches` those of phase 15, its `zoo_launches` those of
+phase 16's counted runs, and its `train_launches` those of phase 17
+(c)'s two runs (`flash_attention_bwd`'s `launches` are those too: no
+earlier phase runs it). The last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -278,6 +300,8 @@ import dataclasses
 import functools
 import io
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -392,8 +416,8 @@ SWA_MAX_LEN = 4608
 # tests/test_torch_suitability.py holds these constants to it). PrIM rows
 # at n = 4096 on the modelled UPMEM system: (KT1 memory-bound, KT2 simple
 # ops, KT3 low communication, PIM-suitable); LM steps of REDUCED
-# granite-3-8b: memory-bound on the modelled TPU v5e. The reference's
-# train row comes with the port of train/.
+# granite-3-8b (train, prefill, decode): memory-bound on the modelled TPU
+# v5e.
 SUITABILITY_VERDICTS = {
     "VA": (True, True, True, True),
     "GEMV": (True, True, True, True),
@@ -404,6 +428,7 @@ SUITABILITY_VERDICTS = {
     "TRNS": (False, True, True, False),
     "TS": (True, True, True, True),
     "HST-S": (True, False, True, False),
+    "train": True,
     "prefill": True,
     "decode": True,
 }
@@ -454,6 +479,50 @@ QWEN_VL_GRID = 32
 # (6.2e-3 was measured on the CPU at d_model 1024)
 MAMBA_PROMPT, MAMBA_STEPS = 1000, 8
 MAMBA_BF16_BAND = 3e-2
+
+# phase 17 (a): the flash backward and the forward's log-sum-exp, (B, Sq,
+# Skv, H, KVH, hd, causal, window, label, q scale): granite's training
+# shape, then at granite's score magnitudes (q scaled so that scores reach
+# the hundreds, PERF.md P1), a causal window, whisper-tiny's encoder and
+# cross-attention, a ragged S
+BWD_CASES = [
+    (2, 4096, 4096, 32, 8, 128, True, 0, "granite train_4k", 1.0),
+    (1, 2048, 2048, 32, 8, 128, True, 0, "granite, scores in the hundreds",
+     40.0),
+    (1, 2048, 2048, 32, 8, 128, True, 512, "causal window 512", 1.0),
+    (4, 1500, 1500, 6, 6, 64, False, 0, "whisper encoder", 1.0),
+    (4, 448, 1500, 6, 6, 64, False, 0, "whisper cross-attention", 1.0),
+    (1, 1000, 1000, 16, 4, 128, True, 0, "ragged S", 1.0),
+]
+# each gradient within this share of its f64 scale, or no further from f64
+# than the plain version in the same dtype (bf16: the outputs' own
+# rounding, 2^-8 relative, dominates)
+BWD_BAND = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the forward's log-sum-exp: |lse - lse_f64| <= LSE_TOL (1 + |lse_f64|):
+# f32 sums of scores in the hundreds (measured 1.19e-5 on the CUDA-core
+# route with q x 40); a wrong base-2 conversion would be off by O(1)
+LSE_TOL = 1e-4
+# phase 17 (b): granite-3-8b at full width, GRAD_LAYERS layers, f32, B 1 x
+# GRAD_SEQ; every gradient leaf of the kernel path no further from an f64
+# run than GRAD_F64_FACTOR x the plain f32 path's distance
+GRAD_LAYERS, GRAD_SEQ = 2, 1024
+GRAD_F64_FACTOR = 2.0
+# phase 17 (c): granite-3-8b at published widths, 8 of its 40 layers (40
+# are 8.4 B parameters: 100 GB of bf16 params and grads and f32 moments,
+# more than the card's 80 GB; 8 are 24 GB), bf16, remat groups of 4 as
+# its config, B 2 x train_4k's 4096 tokens
+TRAIN_ARCH, TRAIN_LAYERS = "granite-3-8b", 8
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
+# phase 17 (d): launch.train on whisper-tiny at full width and depth, then
+# again to more steps (it resumes); per step the flash forward runs 4
+# encoder, 4 self and 4 cross-attention layers twice (remat) and the
+# backward once each
+WHISPER_TRAIN_ARGS = ["--arch", "whisper-tiny", "--batch", "4", "--seq",
+                      "448", "--ckpt-every", "2", "--warmup", "2",
+                      "--log-every", "1"]
+TRAIN_CLI_STEPS = (4, 6)
+WHISPER_FWD_PER_STEP, WHISPER_BWD_PER_STEP = 24, 12
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -3671,6 +3740,416 @@ def mamba_full_width(device="cuda", d_model=None, prompt_len=MAMBA_PROMPT):
     return {"outputs_f64": err, "state_f64": err_h}
 
 
+# --------------------------------------------------------------------- #
+# phase 17: training on the card
+# --------------------------------------------------------------------- #
+
+def by_kv_head(fn, q, k, v, *per_query):
+    """`fn(q_g, k_g, v_g, *per_query_g)` on each KV head and its group of
+    query heads (f64 runs at full size would not fit at once), the
+    results concatenated over the heads: tensors shaped (B, S, heads, hd)
+    along dim 2, the log-sum-exp (B, heads, Sq) along dim 1.
+    `per_query`: (B, Sq, H, hd) tensors, or the (B, H, Sq) log-sum-exp."""
+    kvh, g = k.shape[2], q.shape[2] // k.shape[2]
+    outs = []
+    for j in range(kvh):
+        hs = slice(j * g, (j + 1) * g)
+        rest = [t[:, hs] if t.dim() == 3 else t[:, :, hs] for t in per_query]
+        outs.append(fn(q[:, :, hs], k[:, :, j:j + 1], v[:, :, j:j + 1], *rest))
+    if torch.is_tensor(outs[0]):
+        outs = [(o,) for o in outs]
+    return tuple(torch.cat(parts, dim=1 if parts[0].dim() == 3 else 2)
+                 for parts in zip(*outs))
+
+
+def bwd_case(ref, case, dtype, gen, timed, device="cuda"):
+    """Phase 17 (a): one case of the backward kernel and the forward's
+    log-sum-exp, held to the plain version in f64 and in `dtype`."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfb
+    b, sq, skv, h, kvh, hd, causal, window, label, qscale = case
+    mk = lambda *s: torch.randn(*s, generator=gen, device=device)
+    q = (mk(b, sq, h, hd) * qscale).to(dtype)
+    k, v, do = (mk(b, skv, kvh, hd).to(dtype), mk(b, skv, kvh, hd).to(dtype),
+                mk(b, sq, h, hd).to(dtype))
+    o_plain_bits = kfa.flash_attention(q, k, v, causal, window)
+    o, lse = kfa.flash_attention(q, k, v, causal, window, return_lse=True)
+    if not torch.equal(o, o_plain_bits):
+        raise AssertionError(f"flash forward {label} {dtype}: asking for the "
+                             f"log-sum-exp changed the output bits")
+    grads = kfb.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    again = kfb.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    if not all(torch.equal(a, c) for a, c in zip(grads, again)):
+        raise AssertionError(f"flash backward {label} {dtype}: two launches "
+                             f"gave different bits")
+
+    def fwd(q, k, v):
+        return ref.flash_attention(q, k, v, causal, window, return_lse=True)
+
+    def bwd(q, k, v, o, lse, do):
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, lse64 = by_kv_head(fwd, q64, k64, v64)
+    g64 = by_kv_head(bwd, q64, k64, v64, o64, lse64, do64)
+    del o64
+    op, lsep = by_kv_head(fwd, q, k, v)
+    gp = by_kv_head(bwd, q, k, v, op, lsep, do)
+    del op
+    lse_rel = lambda x: float(((x.double() - lse64).abs()
+                               / (1 + lse64.abs())).max())
+    lse_err, lse_plain = lse_rel(lse), lse_rel(lsep)
+    row = {"case": f"{label}: B{b} Sq{sq} Skv{skv} H{h} KVH{kvh} hd{hd} "
+                   f"causal{int(causal)} window{window}"
+                   + (f" q x {qscale:g}" if qscale != 1 else ""),
+           "dtype": str(dtype).split(".")[-1],
+           "fwd_route": kfa.route(dtype, hd), "lse_rel_err": lse_err,
+           "lse_plain_rel_err": lse_plain, "failures": [],
+           "max_abs_err": max(max_abs_err(a, w) for a, w in zip(grads, g64)),
+           "bit_identical_twice": True, "lse_same_output_bits": True}
+    for name, got, plain, want in zip(("dq", "dk", "dv"), grads, gp, g64):
+        err_k, err_p = rel(got.double(), want), rel(plain.double(), want)
+        row[f"{name}_f64"], row[f"{name}_plain_f64"] = err_k, err_p
+        if not (torch.isfinite(got).all()
+                and (err_k <= BWD_BAND[dtype] or err_k <= err_p)):
+            row["failures"].append(
+                f"{name} is {err_k:.3g} of scale from f64 (band "
+                f"{BWD_BAND[dtype]}), the plain version {err_p:.3g}")
+    if lse_err > LSE_TOL:
+        row["failures"].append(f"log-sum-exp {lse_err:.3g} from "
+                               f"torch.logsumexp in f64 (limit {LSE_TOL})")
+    del g64, gp
+    if not timed:
+        return row
+    qp = torch.arange(sq)[:, None]
+    kp = torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= qp - kp < window
+    pairs = int(mask.sum())
+    isz = torch.finfo(dtype).bits // 8
+    nbytes = 4 * (b * sq * h * hd + b * skv * kvh * hd) * isz + 4 * b * h * sq
+    row["flops"] = 10.0 * pairs * h * hd * b
+    row["bound_ms"], row["bound_by"] = bound(nbytes, row["flops"],
+                                             PEAK_FLOPS[dtype])
+    row["cuda_core_f32_bound_ms"] = bound(nbytes, row["flops"],
+                                          PEAK_FLOPS[torch.float32])[0]
+    sets = [(q, k, v, o, lse, do)]
+    kernel = lambda *a: kfb.flash_attention_bwd(*a, causal, window)
+    row["ms"] = graph_ms(kernel, sets, reps=3, per_rep=3)
+    row["launched_ms"] = median_ms(kernel, sets, reps=3, per_rep=3)
+    row["plain_ms"] = median_ms(
+        lambda q, k, v, o, lse, do: ref.flash_attention_bwd(
+            q, k, v, o, lse, do, causal, window), sets, reps=3, per_rep=1)
+    lib_mask = None if not window and (not causal or sq == skv) \
+        else mask.to(device)
+
+    def library(q, k, v, o, lse, do):
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                      for t in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=lib_mask,
+            is_causal=causal and lib_mask is None, enable_gqa=True)
+        return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
+    with torch.enable_grad():
+        row["library_ms"] = median_ms(library, sets, reps=3, per_rep=3)
+    row["achieved_tflops"] = row["flops"] / row["ms"] / 1e9
+    return row
+
+
+def backward_checks(ref, device="cuda", cases=None):
+    """Phase 17 (a): BWD_CASES in f32 and bf16 (the first case timed).
+    Returns the rows; the bf16 row at the first case is the `kernels`
+    line's."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 17)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for i, case in enumerate(cases or BWD_CASES):
+            rows.append(bwd_case(ref, case, dtype, gen, timed=i == 0,
+                                 device=device))
+            torch.cuda.empty_cache()
+    for r in rows:
+        log(f"  flash_attention_bwd {r['dtype']:8s} {r['case']}: " + ", ".join(
+            f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+            for k, v in r.items() if k not in ("case", "dtype")))
+    failed = [f"{r['case']} {r['dtype']}: {f}" for r in rows
+              for f in r["failures"]]
+    if failed:
+        raise AssertionError("flash backward / log-sum-exp:\n"
+                             + "\n".join(failed))
+    return rows
+
+
+@contextmanager
+def plain_primitives(ops):
+    """Test-only switch: the autograd Function of `ops.flash_attention`
+    runs its plain primitives (`ref.flash_attention` with the log-sum-exp,
+    `ref.flash_attention_bwd`) on the card instead of the kernels."""
+    from repro_torch.kernels import ref
+    saved = ops._flash_forward, ops._flash_backward
+    ops._flash_forward = ref.flash_attention
+    ops._flash_backward = ref.flash_attention_bwd
+    try:
+        yield
+    finally:
+        ops._flash_forward, ops._flash_backward = saved
+
+
+def grad_parity(ops, ref, kernels, device="cuda", reduced=False):
+    """Phase 17 (b): granite-3-8b at full width, GRAD_LAYERS layers, f32,
+    B 1 x GRAD_SEQ: `loss_fn`'s gradients through the kernels, through the
+    plain primitives on the card, and in f64 (the plain attention under
+    autograd, f64 weights). Every leaf of the kernel path no further from
+    f64 than GRAD_F64_FACTOR x the plain path's distance."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.models import init_params, tree_map
+    from repro_torch.train import DataConfig, make_batch
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH, reduced=reduced),
+                              n_layers=GRAD_LAYERS, dtype="float32")
+    params = init_params(SEED, cfg, device)
+    batch = make_batch(cfg, ShapeConfig("b", GRAD_SEQ if not reduced else 32,
+                                        1, "train"), 0, DataConfig(), device)
+    reset_counts(kernels)
+    loss_k, g_k = value_and_grad(params, batch, cfg)
+    launches = {k: kern.launches for k, kern in kernels.items()}
+    with plain_primitives(ops):
+        loss_p, g_p = value_and_grad(params, batch, cfg)
+    if {k: kern.launches for k, kern in kernels.items()} != launches:
+        raise AssertionError("grad parity: the plain path launched a kernel")
+    saved = ops.flash_attention
+    ops.flash_attention = ref.flash_attention
+    try:
+        p64 = tree_map(lambda t: t.double(), params)
+        loss_64, g_64 = value_and_grad(
+            p64, batch, dataclasses.replace(cfg, dtype="float64"))
+        del p64
+    finally:
+        ops.flash_attention = saved
+    want = {"flash_attention": 2 * GRAD_LAYERS,          # forward + remat
+            "flash_attention_bwd": GRAD_LAYERS}
+    if {k: n for k, n in launches.items() if n} != want:
+        raise AssertionError(f"grad parity launches {launches}, want {want}")
+    worst, failed = (0.0, None), []
+    for name, gk, gp, g6 in zip(leaf_names(params), leaves(g_k),
+                                leaves(g_p), leaves(g_64)):
+        ek, ep = rel(gk.double(), g6), rel(gp.double(), g6)
+        log(f"    {name}: kernel-f64 {ek:.3g}, plain-f64 {ep:.3g}, "
+            f"ratio {ek / max(ep, 1e-300):.3g}")
+        if not (torch.isfinite(gk).all() and ek <= GRAD_F64_FACTOR * ep):
+            failed.append(name)
+        worst = max(worst, (ek / max(ep, 1e-300), name))
+    log(f"  loss: kernels {float(loss_k):.9g}, plain {float(loss_p):.9g}, "
+        f"f64 {float(loss_64):.12g}; worst kernel/plain distance ratio "
+        f"{worst[0]:.3g} ({worst[1]}; limit {GRAD_F64_FACTOR})")
+    if failed:
+        raise AssertionError(f"grad parity: {failed} of the kernel path are "
+                             f"further from f64 than {GRAD_F64_FACTOR} x the "
+                             f"plain path's distance")
+    return launches
+
+
+def leaf_names(tree, prefix=""):
+    """The dotted paths of a tree's leaves, in `leaves`' order (dict keys
+    sorted, lists in order)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, t in enumerate(tree)
+                for n in leaf_names(t, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def train_main_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
+    """Phase 17 (c): granite-3-8b at published widths, TRAIN_LAYERS of its
+    40 layers, bf16 params, f32 moments, remat groups of 4, B TRAIN_BATCH
+    x `seq` tokens: TrainLoop for TRAIN_STEPS steps, then a second loop
+    that fails at step TRAIN_FAIL_AT, resumes from the step-TRAIN_CKPT_EVERY
+    checkpoint and must end bit-equal to the first. Returns the launches
+    of both runs together and the run's numbers."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.train import (DataConfig, HParams, InjectedFailure,
+                                   LoopConfig, TrainLoop, make_batch)
+    from repro_torch.train.optimizer import leaves
+    from repro_torch.train.step import value_and_grad
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH, reduced=reduced),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k", seq, TRAIN_BATCH, "train")
+    hp = HParams(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    groups = cfg.n_blocks // cfg.remat_group
+    per_step = {"flash_attention": 2 * cfg.n_blocks,   # forward + remat
+                "flash_attention_bwd": cfg.n_blocks}
+    log(f"  {cfg.name}: {cfg.n_layers} layers in {groups} remat groups of "
+        f"{cfg.remat_group}, {cfg.param_count():,} parameters, {cfg.dtype} "
+        f"params, {cfg.opt_moment_dtype} moments, B {TRAIN_BATCH} x S {seq}")
+
+    # which ops of the step give other bits on the same inputs
+    loop = TrainLoop(cfg, shape, hp, LoopConfig(), device=device)
+    state = loop.init_state(SEED)
+    batch = make_batch(cfg, shape, 0, DataConfig(), device)
+    _, g1 = value_and_grad(state.params, batch, cfg)
+    _, g2 = value_and_grad(state.params, batch, cfg)
+    differ = [i for i, (a, b) in enumerate(zip(leaves(g1), leaves(g2)))
+              if not torch.equal(a, b)]
+    log(f"  the step's gradients, two evaluations on one state: "
+        f"{len(leaves(g1)) - len(differ)} of {len(leaves(g1))} leaves "
+        f"bit-identical" + (f"; differing leaves {differ}" if differ else ""))
+    del loop, state, batch, g1, g2
+    torch.cuda.empty_cache()
+
+    root = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
+    try:
+        reset_counts(kernels)
+        torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(cfg, shape, hp, LoopConfig(
+            total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS + 1,
+            ckpt_dir=str(root / "a"), log_every=1), device=device)
+        t0 = time.perf_counter()
+        state = loop.run(loop.init_state(SEED))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+        launches = read_counts(kernels, "training run", want)
+        routes = {r: kfa.KERNEL.route_launches[r] for r in kfa.ROUTES}
+        if device == "cuda" and routes["cuda_core"]:
+            raise AssertionError(f"training: flash routes {routes}, want "
+                                 f"tensor cores only (bf16, hd 128)")
+        losses = [m["loss"] for m in loop.metrics_log]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"training losses {losses}")
+        final = [t.to("cpu") for t in leaves({"p": state.params,
+                                              "o": state.opt})]
+        step_ms = statistics.median(loop._durations) * 1e3
+        del loop, state
+        torch.cuda.empty_cache()
+
+        reset_counts(kernels)
+        lc = LoopConfig(total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+                        ckpt_dir=str(root / "b"), keep_ckpts=1, log_every=1,
+                        fail_at_step=TRAIN_FAIL_AT)
+        crash = TrainLoop(cfg, shape, hp, lc, device=device)
+        t1 = time.perf_counter()
+        try:
+            crash.run(crash.resume_or_init(SEED))
+        except InjectedFailure as e:
+            log(f"  second run: {e}")
+        else:
+            raise AssertionError("the injected failure did not fire")
+        before = [m["loss"] for m in crash.metrics_log]
+        del crash
+        torch.cuda.empty_cache()
+        resume = TrainLoop(cfg, shape, hp,
+                           dataclasses.replace(lc, fail_at_step=None),
+                           device=device)
+        state = resume.resume_or_init(SEED)
+        if state.step != TRAIN_CKPT_EVERY:
+            raise AssertionError(f"resumed at step {state.step}, want "
+                                 f"{TRAIN_CKPT_EVERY}")
+        state = resume.run(state)
+        torch.cuda.synchronize()
+        secs2 = time.perf_counter() - t1
+        redone = TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_CKPT_EVERY
+        launches2 = read_counts(kernels, "crash-and-resume run",
+                                {k: n * redone for k, n in per_step.items()})
+        after = [m["loss"] for m in resume.metrics_log]
+        same = sum(torch.equal(a, b.to("cpu")) for a, b in zip(
+            final, leaves({"p": state.params, "o": state.opt})))
+        log(f"  losses, uninterrupted: {losses}")
+        log(f"  losses, crash at {TRAIN_FAIL_AT} and resume from "
+            f"{TRAIN_CKPT_EVERY}: {before} + {after}")
+        log(f"  bit-identical leaves after the resumed run: {same} of "
+            f"{len(final)}")
+        if same != len(final) or after != losses[TRAIN_CKPT_EVERY:] or \
+                before != losses[:TRAIN_FAIL_AT]:
+            raise AssertionError("the resumed run did not end bit-equal to "
+                                 "the uninterrupted one")
+        del state, resume, final
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tokens = TRAIN_BATCH * seq
+    out = {"ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
+           "peak_bytes": peak, "losses": losses, "run_s": secs,
+           "crash_resume_s": secs2,
+           "model_tflop_per_step": cfg.model_flops(tokens=tokens,
+                                                   train=True) / 1e12}
+    log(f"  training: {step_ms:.2f} ms/step (median of {TRAIN_STEPS}, host "
+        f"clock to the loss's sync), {out['tokens_per_s']:.1f} tokens/s, "
+        f"peak {peak:,} bytes; {secs:.1f} s for the run, {secs2:.1f} s for "
+        f"the crash-and-resume run (checkpoints included); model "
+        f"{out['model_tflop_per_step']:.1f} TFLOP a step (6 N D)")
+    return {k: launches[k] + launches2[k] for k in launches}, out
+
+
+def train_entry_point(device=None, reduced=False):
+    """Phase 17 (d): `python -m repro_torch.launch.train` on whisper-tiny
+    at full width and depth, then again with more steps: it must resume
+    from the latest checkpoint. Returns the launches both runs printed."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="train_cli_", dir=ROOT / "build")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    extra = (["--device", device] if device else []) + \
+        (["--reduced"] if reduced else [])
+    total = {}
+    try:
+        first, second = TRAIN_CLI_STEPS
+        for steps, start in ((first, 0), (second, first)):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   *WHISPER_TRAIN_ARGS, "--steps", str(steps), "--ckpt-dir",
+                   d, *extra]
+            t0 = time.perf_counter()
+            run = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=ROOT, env=env, timeout=600)
+            secs = time.perf_counter() - t0
+            if run.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                                     f"{run.returncode}:\n{run.stderr[-3000:]}")
+            lines = run.stdout.splitlines()
+            logged = [json.loads(x) for x in lines
+                      if x.startswith('{"step"')]
+            if not logged or not all(math.isfinite(m["loss"])
+                                     for m in logged):
+                raise AssertionError(f"launch.train losses {logged}")
+            resumed = f"resumed from step {start}" in run.stdout
+            if bool(start) != resumed or f"done: {steps} steps" not in \
+                    run.stdout:
+                raise AssertionError(f"launch.train --steps {steps}: "
+                                     f"{run.stdout[-2000:]}")
+            counts = [json.loads(x)["kernel_launches"] for x in lines
+                      if x.startswith('{"kernel_launches"')]
+            log(f"  launch.train --steps {steps} ({secs:.1f} s): losses "
+                f"{[round(m['loss'], 4) for m in logged]}, "
+                + ("resumed, " if resumed else "")
+                + (f"launches {counts[0]}" if counts else "on the CPU"))
+            if device is None:
+                n = steps - start
+                want = {"flash_attention": WHISPER_FWD_PER_STEP * n,
+                        "flash_attention_bwd": WHISPER_BWD_PER_STEP * n}
+                got = {k: c["launches"] for k, c in counts[0].items()}
+                if got != want:
+                    raise AssertionError(f"launch.train launches {got}, "
+                                         f"want {want}")
+                for k, c in counts[0].items():
+                    total[k] = total.get(k, 0) + c["launches"]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3699,8 +4178,8 @@ def main() -> int:
         log(f"  {name}: {len(regs)} kernels, registers {min(regs, default=0)}"
             f"-{max(regs, default=0)}, spill stores up to "
             f"{max(spills, default=0)} bytes")
-    for src in ("flash_attention.cu", "decode_attention.cu", "va.cu",
-                "gemv.cu", "scan.cu"):
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu",
+                "decode_attention.cu", "va.cu", "gemv.cu", "scan.cu"):
         for label, regs, spill, smem in ptxas_per_kernel(
                 _build.BUILD_LOG.get(src, "")):
             log(f"    {src} {label}: {regs} registers, {spill} bytes spill "
@@ -3832,6 +4311,24 @@ def main() -> int:
         raise AssertionError(f"phase 16 launches {launches16}: want both "
                              f"attention kernels and no other")
 
+    log("phase 17: training: the flash backward kernel and the forward's "
+        "log-sum-exp against f64; granite-3-8b gradients at full width "
+        "through kernels, plain versions and f64; granite-3-8b full width, "
+        f"{TRAIN_LAYERS} layers, bf16, TrainLoop with a crash and a bit-exact "
+        "resume; launch.train on whisper-tiny")
+    t17 = time.perf_counter()
+    bwd_rows = backward_checks(ref)
+    torch.cuda.empty_cache()
+    grad_parity(ops, ref, kernels)
+    torch.cuda.empty_cache()
+    launches17, trained = train_main_path(kernels)
+    torch.cuda.empty_cache()
+    cli17 = train_entry_point()
+    log(f"  launches on the training path (phase 17 (c)): {launches17}; "
+        f"launch.train (d): {cli17}; phase 17 took "
+        f"{time.perf_counter() - t17:.1f}s")
+    log(json.dumps({"train": trained}))
+
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
     launches["stream_ops"] = launches7["stream_ops"]
@@ -3846,6 +4343,11 @@ def main() -> int:
         f"12): {moe_swa}")
     stream_rows.update(prim_rows)
     stream_rows["scan_lookback"] = int32_rows["ops.scan int32"]
+    # the bf16 row at training's shape (phase 17 (a)); its path is phase
+    # 17 (c)'s
+    stream_rows["flash_attention_bwd"] = next(
+        r for r in bwd_rows if r["dtype"] == "bfloat16" and "ms" in r)
+    launches["flash_attention_bwd"] = launches17["flash_attention_bwd"]
     for name in ("decode_attention", "flash_attention"):
         # the bf16 row at the main path's first shape
         stream_rows[name] = next(r for r in rows[name]
@@ -3855,6 +4357,9 @@ def main() -> int:
               "ts_dists": "ts"}
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:64",
                 "flash_attention": "src/repro/kernels/flash_attention.py:79",
+                # no pallas_call: the gradient of the reference's pure
+                # attention, which jax.grad differentiates
+                "flash_attention_bwd": "src/repro/models/transformer.py:171",
                 "va": "src/repro/kernels/va.py:22",
                 "reduction": "src/repro/kernels/reduction.py:28",
                 "stream_ops": "src/repro/kernels/microbench.py:27",
@@ -3879,6 +4384,7 @@ def main() -> int:
             "dispatch_launches": launches14[name],
             "gateway_launches": launches15[name],
             "zoo_launches": launches16[name],
+            "train_launches": launches17[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

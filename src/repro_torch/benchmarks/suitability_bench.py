@@ -4,16 +4,17 @@
 
 Scores (a) the PrIM reference programs (`prim.<workload>.ref`, n = 4096)
 against the modelled UPMEM machine — the paper's own suitability
-verdicts — and (b) the prefill and decode steps of REDUCED granite-3-8b
-against the modelled TPU machine: decode is the PIM-suitable stage
-(memory-bound GEMV).
+verdicts — and (b) the train, prefill and decode steps of REDUCED
+granite-3-8b against the modelled TPU machine: decode is the PIM-suitable
+stage (memory-bound GEMV), train and prefill are compute-bound.
 
 The inputs and parameters are made on `device` (default: the card); the
 census (`core.census`) traces their fake CPU twins, or, for a program that
 reads values on the host, CPU copies. Nothing of this path runs on the
 card and no kernel is launched: every number is a count of the program,
-scored on a modelled machine. The reference's train-step row comes with
-the port of `train/` (ROADMAP Queue 1 item 18b).
+scored on a modelled machine. The train step's census holds its forward,
+its backward (the autograd Function's CPU primitives: the plain attention
+and its explicit gradient) and the AdamW update.
 """
 
 from __future__ import annotations
@@ -27,13 +28,17 @@ from ..configs import REDUCED
 from ..core.census import analyze_program
 from ..core.suitability import score
 from ..device import resolve_device
+from ..configs.shapes import ShapeConfig
 from ..models import forward, init_cache, init_params
+from ..train import DataConfig, HParams, adamw_init, make_batch, \
+    make_train_step
 
 PRIM_ROWS = ("VA", "GEMV", "SpMV", "BS", "RED", "SCAN-SSA", "TRNS", "TS",
              "HST-S")
 PRIM_N = 4096
 LM_ARCH = "granite-3-8b"
 LM_SLOTS, LM_CACHE, LM_PROMPT = 4, 128, 64
+LM_TRAIN = ShapeConfig("b", 64, 4, "train")
 
 
 def prim_reports(device=None) -> list:
@@ -54,8 +59,9 @@ def prim_reports(device=None) -> list:
 
 
 def lm_programs(device=None) -> dict:
-    """name -> (fn, args) of the REDUCED granite-3-8b prefill (4 x 64
-    tokens into a 4 x 128 cache) and decode (4 x 1) steps."""
+    """name -> (fn, args) of the REDUCED granite-3-8b train step (4 x 64
+    tokens, AdamW with default hyperparameters), prefill (4 x 64 tokens
+    into a 4 x 128 cache) and decode (4 x 1) steps."""
     dev = resolve_device(device)
     cfg = REDUCED[LM_ARCH]
     params = init_params(0, cfg, device=dev)
@@ -63,7 +69,10 @@ def lm_programs(device=None) -> dict:
 
     def step(p, c, t):
         return forward(p, cfg, tokens=t, cache=c)[0]
+    batch = make_batch(cfg, LM_TRAIN, 0, DataConfig(), dev)
     return {
+        "train": (make_train_step(cfg, HParams()),
+                  (params, adamw_init(params, cfg), batch)),
         "prefill": (step, (params, cache, torch.ones(
             (LM_SLOTS, LM_PROMPT), dtype=torch.int32, device=dev))),
         "decode": (step, (params, cache, torch.ones(

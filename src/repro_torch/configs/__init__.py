@@ -1,8 +1,9 @@
 """Assigned architectures (10). `--arch <id>` selects one.
 
 The same tables as `repro.configs`: `ARCHS` at published widths and
-`REDUCED` for tests. The input-shape table (`repro.configs.shapes`) belongs
-to the dry-run and is not ported yet."""
+`REDUCED` for tests. `shapes` holds the input-shape table (`ShapeConfig`,
+`SHAPES`); its dry-run specs (`input_specs`) come with `launch.dryrun`
+(ROADMAP Queue 1, item 18c)."""
 
 from . import (deepseek_coder_33b, granite_3_8b, jamba_15_large,
                llama3_405b, mixtral_8x7b, qwen2_moe_a27b, qwen2_vl_72b,

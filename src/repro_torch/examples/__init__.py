@@ -9,8 +9,7 @@ narrative command line:
   dispatch_demo   plan -> schedule -> execute the mixed PrIM pipeline
   serve_decode    continuous-batching decode (fused or planner-routed)
   gateway_serve   the serving gateway under seeded Poisson arrivals
+  train_lm        a ~100M dense LM through the fault-tolerant TrainLoop
 
-Each runs on the card unless `--device cpu` asks for the CPU. The
-reference's `train_lm` comes with the port of `train/` (ROADMAP Queue 1,
-item 18b).
+Each runs on the card unless `--device cpu` asks for the CPU.
 """

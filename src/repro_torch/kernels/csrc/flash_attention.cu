@@ -54,6 +54,16 @@
 // of chip_smoke.py holds every f32 call within 1e-4 of an f64 run, which
 // TF32 tensor cores cannot.
 //
+// Log-sum-exp (both routes): given a non-null `lse`, the kernels also
+// write each row's f32 log-sum-exp of its scaled scores, natural log,
+// shaped (B, H, Sq), which the backward (flash_attention_bwd.cu) reads to
+// recompute P. CUDA cores keep m and l of the scaled scores: lse = m +
+// log(l). The tensor cores keep m of the raw scores and l of base-2
+// exponents: lse = (m * scale_log2 + log2(l)) * ln 2. Rows with no
+// unmasked key get -1e30, the plain version's logsumexp of scores that
+// are all -1e30 (f32 and f64 alike). With `lse` null nothing else changes:
+// the output bits are those of the kernels without it.
+//
 // Both: key tiles that are wholly causally dead or outside the window are
 // never loaded, and query tiles run latest first, so the longest causal
 // rows start first. A query row with no unmasked key (window > 0 and
@@ -108,7 +118,8 @@ size_t smem_bytes(int hd) {
 template <typename T, int HDM>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv,
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int Sq, int Skv,
              int H, int KVH, int hd, Strides qs, Strides ks, Strides vs,
              int causal, int window, int q_off, float scale) {
   constexpr int CD = HDM / 16;   // output columns per thread
@@ -229,6 +240,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qpos = q_lo + ty + 16 * i;
     if (qpos >= Sq || qpos >= q_empty) continue;
     const float inv = 1.f / fmaxf(l_i[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[((size_t)b * H + h) * Sq + qpos] = m_i[i] + logf(l_i[i]);
     T* orow = o + (((size_t)b * Sq + qpos) * H + h) * hd;
 #pragma unroll
     for (int c = 0; c < CD; ++c) {
@@ -239,13 +252,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // Rows [q_empty, Sq) of head h, batch b: the f32 mean of V over keys
-// [0, Skv), one thread per column, summed in key order.
+// [0, Skv), one thread per column, summed in key order; their lse -1e30.
 template <typename T>
 __global__ void empty_rows_kernel(const T* __restrict__ v, T* __restrict__ o,
-                                  int Sq, int Skv, int H, int KVH, int hd,
-                                  Strides vs, int q_empty) {
+                                  float* __restrict__ lse, int Sq, int Skv,
+                                  int H, int KVH, int hd, Strides vs,
+                                  int q_empty) {
   const int h = blockIdx.x, b = blockIdx.y;
   const int kh = h / (H / KVH);
+  if (lse != nullptr)
+    for (int qpos = q_empty + threadIdx.x; qpos < Sq; qpos += blockDim.x)
+      lse[((size_t)b * H + h) * Sq + qpos] = -1e30f;
   const T* vb = v + b * vs.b + kh * vs.h;
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
     float sum = 0.f;
@@ -353,7 +370,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, int Sq, int Skv, int H,
+                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 int Sq, int Skv, int H,
                  int KVH, Strides qs, Strides ks, Strides vs, int causal,
                  int window, int q_off, float scale_log2, int vec) {
   constexpr int KS = HD / 16;             // 16-wide steps over hd
@@ -539,6 +557,9 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (rows[i] >= Sq || rows[i] >= q_empty) continue;
+    if (lse != nullptr && tq == 0)
+      lse[((size_t)b * H + h) * Sq + rows[i]] =
+          (m_r[i] * scale_log2 + log2f(l_r[i])) * 0.69314718055994531f;
     __nv_bfloat16* orow = o + (((size_t)b * Sq + rows[i]) * H + h) * HD;
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn)
@@ -549,7 +570,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 int launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
-               const void* v, void* o, int Sq, int Skv, int H, int KVH,
+               const void* v, void* o, float* lse, int Sq, int Skv, int H, int KVH,
                Strides qs, Strides ks, Strides vs, int causal, int window,
                int q_off, int vec) {
   constexpr size_t smem = mma_smem_bytes(HD);
@@ -568,21 +589,21 @@ int launch_mma(dim3 grid, cudaStream_t st, const void* q, const void* k,
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
   flash_mma_kernel<HD><<<grid, kMmaThreads, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq,
-      Skv, H, KVH, qs, ks, vs, causal, window, q_off, scale_log2, vec);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, scale_log2, vec);
   return 0;
 }
 
 // one instantiation per head dim: every offset is a constant
 template <int HD>
 int launch_mma_hd(int hd, dim3 grid, cudaStream_t st, const void* q,
-                  const void* k, const void* v, void* o, int Sq, int Skv,
-                  int H, int KVH, Strides qs, Strides ks, Strides vs,
+                  const void* k, const void* v, void* o, float* lse, int Sq,
+                  int Skv, int H, int KVH, Strides qs, Strides ks, Strides vs,
                   int causal, int window, int q_off, int vec) {
   if (hd == HD)
-    return launch_mma<HD>(grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
+    return launch_mma<HD>(grid, st, q, k, v, o, lse, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
   if constexpr (HD > 16)
-    return launch_mma_hd<HD - 16>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
+    return launch_mma_hd<HD - 16>(hd, grid, st, q, k, v, o, lse, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -592,7 +613,7 @@ int launch_mma_hd(int hd, dim3 grid, cudaStream_t st, const void* q,
 
 template <typename T, int HDM>
 int launch(dim3 grid, size_t smem, cudaStream_t st, const void* q,
-           const void* k, const void* v, void* o, int Sq, int Skv, int H,
+           const void* k, const void* v, void* o, float* lse, int Sq, int Skv, int H,
            int KVH, int hd, Strides qs, Strides ks, Strides vs, int causal,
            int window, int q_off, float scale) {
   cudaError_t e = cudaFuncSetAttribute(
@@ -601,21 +622,21 @@ int launch(dim3 grid, size_t smem, cudaStream_t st, const void* q,
   if (e != cudaSuccess) return static_cast<int>(e);
   flash_kernel<T, HDM><<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KVH, hd, qs,
-      ks, vs, causal, window, q_off, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KVH, hd,
+      qs, ks, vs, causal, window, q_off, scale);
   return 0;
 }
 
 template <typename T>
 int launch_hd(dim3 grid, size_t smem, cudaStream_t st, const void* q,
-              const void* k, const void* v, void* o, int Sq, int Skv, int H,
+              const void* k, const void* v, void* o, float* lse, int Sq, int Skv, int H,
               int KVH, int hd, Strides qs, Strides ks, Strides vs, int causal,
               int window, int q_off, float scale) {
   if (hd <= 64)
-    return launch<T, 64>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
+    return launch<T, 64>(grid, smem, st, q, k, v, o, lse, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
   if (hd <= 128)
-    return launch<T, 128>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
-  return launch<T, 256>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
+    return launch<T, 128>(grid, smem, st, q, k, v, o, lse, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
+  return launch<T, 256>(grid, smem, st, q, k, v, o, lse, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
 }
 
 }  // namespace
@@ -626,12 +647,13 @@ extern "C" const char* error_string(int code) {
 
 // q: (B, Sq, H, hd), k/v: (B, Skv, KVH, hd), each with unit stride on hd and
 // the given (batch, position, head) strides in elements; o: contiguous
-// (B, Sq, H, hd). window 0 = no window. q_off >= 0: the position of query
-// row 0 counted from key 0. is_bf16: 1 for bf16, 0 for f32.
+// (B, Sq, H, hd); lse: null, or a contiguous f32 (B, H, Sq) that receives
+// each row's log-sum-exp. window 0 = no window. q_off >= 0: the position
+// of query row 0 counted from key 0. is_bf16: 1 for bf16, 0 for f32.
 // route: 1 = tensor cores (bf16, hd % 16 == 0), 0 = CUDA cores; a route the
 // inputs do not fit is refused, never replaced by the other.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int B, int Sq, int Skv, int H, int KVH,
+                               void* o, void* lse_ptr, int B, int Sq, int Skv, int H, int KVH,
                                int hd, long long q_sb, long long q_ss,
                                long long q_sh, long long k_sb, long long k_ss,
                                long long k_sh, long long v_sb, long long v_ss,
@@ -646,6 +668,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_ptr);
   int rc;
   if (route == 1) {
     // 16-byte copies need every base pointer and stride 16-byte aligned
@@ -653,13 +676,13 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     int vec = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                reinterpret_cast<uintptr_t>(v)) % 16 == 0;
     for (long long s : strides) vec = vec && s % 8 == 0;
-    rc = launch_mma_hd<256>(hd, grid, st, q, k, v, o, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
+    rc = launch_mma_hd<256>(hd, grid, st, q, k, v, o, lse, Sq, Skv, H, KVH, qs, ks, vs, causal, window, q_off, vec);
   } else {
     const size_t smem = smem_bytes(hd);
     const float scale = 1.0f / sqrtf(static_cast<float>(hd));
     rc = is_bf16
-        ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale)
-        : launch_hd<float>(grid, smem, st, q, k, v, o, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
+        ? launch_hd<__nv_bfloat16>(grid, smem, st, q, k, v, o, lse, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale)
+        : launch_hd<float>(grid, smem, st, q, k, v, o, lse, Sq, Skv, H, KVH, hd, qs, ks, vs, causal, window, q_off, scale);
   }
   if (rc != 0) return rc;
   cudaError_t e = cudaGetLastError();
@@ -672,10 +695,10 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
     const int threads = ((hd + 31) / 32) * 32;
     if (is_bf16)
       empty_rows_kernel<__nv_bfloat16><<<rows_grid, threads, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Sq, Skv, H, KVH, hd, vs, q_empty);
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, H, KVH, hd, vs, q_empty);
     else
       empty_rows_kernel<float><<<rows_grid, threads, 0, st>>>(
-          static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, H, KVH, hd, vs, q_empty);
+          static_cast<const float*>(v), static_cast<float*>(o), lse, Sq, Skv, H, KVH, hd, vs, q_empty);
     e = cudaGetLastError();
   }
   return static_cast<int>(e);

@@ -10,7 +10,9 @@ Two routes, chosen here by `route(dtype, head_dim)` before the launch:
 bf16 with a head_dim that is a multiple of 16 runs on the tensor cores
 (mma.sync), everything else (f32, other bf16 head dims) on CUDA cores in
 f32. No route is taken because another failed. `KERNEL.launches` counts
-every launch, `KERNEL.route_launches` the launches of each route.
+every launch, `KERNEL.route_launches` the launches of each route. With
+`return_lse` the launch also writes each row's f32 log-sum-exp, which the
+backward (`flash_attention_bwd`) reads; the output's bits do not change.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ._build import CudaKernel, check_cuda
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("flash_attention", "flash_attention",
-                    [_P, _P, _P, _P] + [_I] * 6 + [_L] * 9 + [_I] * 5 + [_P])
+                    [_P] * 5 + [_I] * 6 + [_L] * 9 + [_I] * 5 + [_P])
 MAX_HEAD_DIM = 256
 ROUTES = ("cuda_core", "tensor_core")     # the kernel's route code is the index
 
@@ -41,11 +43,12 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
+                    q_offset: int = 0, return_lse: bool = False):
     """Launch the kernel. q: (B,Sq,H,hd); k, v: (B,Skv,KVH,hd), each with
     unit stride on hd (other strides are free); one CUDA device; f32 or
     bf16. Query row r sits at position q_offset + r, key j at j.
-    Returns a contiguous (B,Sq,H,hd) in q's dtype."""
+    Returns a contiguous (B,Sq,H,hd) in q's dtype, and with `return_lse`
+    also the rows' f32 log-sum-exp (B,H,Sq) of the scaled scores."""
     tensors = (q, k, v)
     check_cuda("flash_attention", *tensors, contiguous=False)
     if any(t.stride(-1) != 1 for t in tensors):
@@ -56,11 +59,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention kernel takes head_dim <= "
                          f"{MAX_HEAD_DIM}, got {hd}")
     out = torch.empty((b, sq, h, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     strides = [s for t in tensors for s in t.stride()[:3]]
     r = route(q.dtype, hd)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(),
                   b, sq, skv, h, kvh, hd, *strides, int(causal), int(window),
                   int(q_offset), int(q.dtype == torch.bfloat16),
                   ROUTES.index(r),
                   torch.cuda.current_stream(q.device).cuda_stream, route=r)
-    return out
+    return (out, lse) if return_lse else out

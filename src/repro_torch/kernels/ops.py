@@ -16,6 +16,12 @@ what the reference's PrIM workloads compute with x64 off. `scan` on the
 int32 route and `scan_add` (the scan plus one offset) are one pass of the
 single-pass kernel; `scan_blocks`, `tile_offsets` and `add_offsets`
 expose the pair's steps.
+
+`flash_attention` is differentiable: where a gradient is asked of it, it
+runs as an autograd Function whose forward also keeps each row's
+log-sum-exp and whose backward is the `flash_attention_bwd` kernel (the
+plain `ref.flash_attention_bwd` on the CPU). `decode_attention` has no
+gradient and raises where one is asked of it.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 
 from . import decode_attention as _da
 from . import flash_attention as _fa
+from . import flash_attention_bwd as _fab
 from . import gemv as _gemv
 from . import histogram as _hst
 from . import microbench as _mb
@@ -51,6 +58,9 @@ def decode_attention(q, k, v, lengths):
     row, an int (the Pallas contract: one length for the batch) or an
     int32 (B,) tensor. Slots [0, lengths[b]) attend; 1 <= lengths <= W."""
     _check_dtypes("decode_attention", q, k, v)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("decode_attention has no gradient: run it under "
+                           "torch.no_grad() or on inputs that need none")
     if q.dim() != 3 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"decode_attention: want q (B,H,hd), k = v "
                          f"(B,W,KVH,hd); got {tuple(q.shape)}, "
@@ -86,9 +96,50 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        _fab.check_supported(q.shape[1], k.shape[1], q.shape[3], window,
+                             q_offset)
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return _flash_forward(q, k, v, causal, window, q_offset)
+
+
+def _flash_forward(q, k, v, causal, window, q_offset, return_lse=False):
+    """The forward by device: the plain version for CPU tensors, else the
+    kernel (which launches or raises)."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal, window, q_offset)
-    return _fa.flash_attention(q, k, v, causal, window, q_offset)
+        return ref.flash_attention(q, k, v, causal, window, q_offset,
+                                   return_lse)
+    return _fa.flash_attention(q, k, v, causal, window, q_offset, return_lse)
+
+
+def _flash_backward(q, k, v, out, lse, dout, causal, window):
+    """The backward by device: `ref.flash_attention_bwd` for CPU tensors,
+    else the backward kernel."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                       window)
+    return _fab.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient (q_offset 0). The forward runs
+    `_flash_forward` with the log-sum-exp and saves q, k, v, the output and
+    the log-sum-exp; the backward runs `_flash_backward`. Each picks its
+    primitive by device; neither falls back to the other."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _flash_forward(q, k, v, causal, window, 0, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        grads = _flash_backward(q, k, v, out, lse, dout, ctx.causal,
+                                ctx.window)
+        return (*grads, None, None)
 
 
 def _check_vector(name, dtypes, *tensors):
@@ -276,6 +327,7 @@ def transpose(A):
 def kernels():
     """name -> launch counter object of every kernel the port has."""
     return {"decode_attention": _da.KERNEL, "flash_attention": _fa.KERNEL,
+            "flash_attention_bwd": _fab.KERNEL,
             "va": _va.KERNEL, "reduction": _red.KERNEL,
             "stream_ops": _mb.KERNEL, "gemv": _gemv.KERNEL,
             "scan_blocks": _scan.SCAN_BLOCKS,

@@ -44,26 +44,75 @@ def decode_attention(q, k, v, lengths):
     return o.reshape(b, h, hd).to(q.dtype)
 
 
-def flash_attention(q, k, v, causal: bool = True, window: int = 0,
-                    q_offset: int = 0):
-    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) — plain softmax attention with
-    key positions counted from 0 and query positions from `q_offset`."""
+def _flash_scores(q, k, causal, window, q_offset):
+    """The masked scaled scores (B, H, Sq, Skv) in the softmax type, with
+    masked entries -1e30, and k repeated over each KV head's group."""
     b, sq, h, hd = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     if kvh != h:
         k = torch.repeat_interleave(k, h // kvh, dim=2)
-        v = torch.repeat_interleave(v, h // kvh, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", _wide(q), _wide(k)) / math.sqrt(hd)
-    q_pos = torch.arange(q_offset, q_offset + sq, device=q.device)[:, None]
-    k_pos = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    return s.masked_fill(~_flash_mask(sq, skv, causal, window, q_offset,
+                                      q.device), -1e30)
+
+
+def _flash_mask(sq, skv, causal, window, q_offset, device):
+    q_pos = torch.arange(q_offset, q_offset + sq, device=device)[:, None]
+    k_pos = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos >= k_pos
     if window:
         mask &= q_pos - k_pos < window
-    s = s.masked_fill(~mask, -1e30)
+    return mask
+
+
+def flash_attention(q, k, v, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, return_lse: bool = False):
+    """q: (B,Sq,H,hd); k,v: (B,Skv,KVH,hd) — plain softmax attention with
+    key positions counted from 0 and query positions from `q_offset`.
+    With `return_lse` also each row's log-sum-exp of its scaled scores,
+    (B,H,Sq) in the softmax type (f32, or f64 for f64 inputs)."""
+    h, kvh = q.shape[2], k.shape[2]
+    if kvh != h:
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
+    s = _flash_scores(q, k, causal, window, q_offset)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, _wide(v)).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, _wide(v)).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)
+    return out
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
+                        window: int = 0):
+    """(dq, dk, dv) of `flash_attention` (q_offset 0) by the explicit
+    formulas, in the softmax type and cast to the inputs' dtype: P from the
+    scores and the forward's `lse` (B,H,Sq), D = rowsum(dO o O),
+    dV = P^T dO, dP = dO V^T, dS = P o (dP - D), dQ = dS K / sqrt(hd),
+    dK = dS^T Q / sqrt(hd), with dK and dV summed over each KV head's
+    group of query heads. Not autograd."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    kw, vw = _wide(k), _wide(v)
+    if g != 1:
+        kw = torch.repeat_interleave(kw, g, dim=2)
+        vw = torch.repeat_interleave(vw, g, dim=2)
+    qw, dow = _wide(q), _wide(dout)
+    mask = _flash_mask(sq, skv, causal, window, 0, q.device)
+    s = torch.einsum("bqhd,bkhd->bhqk", qw, kw) / math.sqrt(hd)
+    p = torch.exp(s - lse.to(s.dtype)[..., None]).masked_fill(~mask, 0.0)
+    d = (dow * _wide(out)).sum(-1).transpose(1, 2)              # (B,H,Sq)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dow)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dow, vw)
+    ds = p * (dp - d[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kw) / math.sqrt(hd)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qw) / math.sqrt(hd)
+    if g != 1:
+        dk = dk.reshape(b, skv, kvh, g, hd).sum(3)
+        dv = dv.reshape(b, skv, kvh, g, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def va(a, b):

@@ -4,5 +4,5 @@ or MoE MLP), the jamba hybrid, RWKV-6, whisper and qwen2-vl."""
 from .cache import cache_defs, cache_width, init_cache
 from .config import LayerSpec, ModelConfig, torch_dtype
 from .sharding import ParamDef, is_def, stack_defs, tree_map
-from .transformer import (forward, init_params, init_tree, param_defs,
-                          quantize_moe_params)
+from .transformer import (forward, init_params, init_tree, lm_loss,
+                          param_defs, quantize_moe_params)

@@ -6,12 +6,16 @@ shared experts).
 Counterpart of `repro.models.layers`. Weights are declared as `ParamDef`
 with the same shapes: q/k/v weights stay 3-D (d_model, heads, head_dim).
 Decode attention goes through `kernels.ops.decode_attention`, the CUDA
-kernel on the card and its plain version on the CPU. The router and the
+kernel on the card and its plain version on the CPU. `flash_attention` is
+the reference's chunked pure attention, held to it on the CPU; the model
+runs the flash kernel instead. The router and the
 expert contractions are plain products outside any kernel, as in the
 reference; the int8 contraction is exact (`int8_expert_matmul`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -123,6 +127,61 @@ def _qkv(x, p, cfg: ModelConfig, *, rope_sin=None, rope_cos=None):
         q = apply_rope(q, rope_sin, rope_cos)
         k = apply_rope(k, rope_sin, rope_cos)
     return q, k, v
+
+
+def flash_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
+                    q_offset: int = 0):
+    """Chunked online-softmax attention in plain PyTorch, the counterpart of
+    `repro.models.layers.flash_attention`: never holds the (Sq, Skv)
+    scores, only (q_chunk, kv_chunk) tiles. q: (B,Sq,H,hd); k, v:
+    (B,Skv,KVH,hd), KV repeated to H heads; Sq and Skv multiples of the
+    chunks (where they exceed them). Masks: causal, `cfg.sliding_window`,
+    query positions from `q_offset`. Running max, sum and output in f32,
+    products of the inputs accumulated in f32, P cast to v's dtype as the
+    reference's. Nothing on the card's path calls it: the model's
+    attention runs the kernels of `kernels.ops`."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    scale = 1.0 / math.sqrt(hd)
+    qc, kc = min(cfg.q_chunk, sq), min(cfg.kv_chunk, skv)
+    if sq % qc or skv % kc:
+        raise ValueError(f"flash_attention: Sq {sq} and Skv {skv} must be "
+                         f"multiples of the chunks {qc}, {kc}")
+    if kvh != h:
+        k = torch.repeat_interleave(k, h // kvh, dim=2)
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
+    acc_t = torch.promote_types(q.dtype, torch.float32)
+    window = cfg.sliding_window
+    chunks = []
+    for q0 in range(0, sq, qc):
+        qchunk = q[:, q0:q0 + qc].to(acc_t)
+        q_pos = q_offset + q0 + torch.arange(qc, device=q.device)
+        m = torch.full((b, h, qc), -1e30, dtype=acc_t, device=q.device)
+        l = torch.zeros((b, h, qc), dtype=acc_t, device=q.device)
+        acc = torch.zeros((b, h, qc, hd), dtype=acc_t, device=q.device)
+        for k0 in range(0, skv, kc):
+            vchunk = v[:, k0:k0 + kc]
+            k_pos = k0 + torch.arange(kc, device=q.device)
+            s = torch.einsum("bqhd,bkhd->bhqk", qchunk,
+                             k[:, k0:k0 + kc].to(acc_t)) * scale
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=q.device)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window:
+                mask &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(mask, s, torch.full((), -1e30, dtype=acc_t,
+                                                 device=q.device))
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(vchunk.dtype).to(acc_t),
+                vchunk.to(acc_t))
+            m = m_new
+        o = acc / torch.clamp(l, min=1e-30)[..., None]
+        chunks.append(o.transpose(1, 2).to(q.dtype))       # (B,qc,H,hd)
+    return torch.cat(chunks, dim=1)
 
 
 def cached_attention(q, k_cache, v_cache, index, cfg: ModelConfig):

@@ -24,6 +24,14 @@ The whisper encoder's self-attention and the cross-attention of a prefill
 run the flash kernel without the causal mask; a decode step's
 cross-attention runs the decode kernel over the whole cached encoder K/V.
 Mamba and RWKV layers are plain PyTorch (`mamba`, `rwkv`): no kernel.
+
+Training (cache None, grad enabled): each stacked leaf is unbound once
+(one `stack` in its backward, not a leaf-sized zero tensor per block) and,
+under `cfg.remat`, every group of `cfg.remat_group` blocks (every encoder
+layer) runs under `torch.utils.checkpoint`, the counterpart of the
+reference's `jax.checkpoint`: its activations are recomputed in the
+backward. The flash-attention calls then carry a gradient through the
+backward kernel (`kernels.ops`). `lm_loss` is the reference's loss.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -254,13 +263,53 @@ def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
     return x, aux
 
 
+def _training(cache_layers=None) -> bool:
+    """A training forward: no cache and grad enabled."""
+    return cache_layers is None and torch.is_grad_enabled()
+
+
+def _unbound(stacked, n: int) -> list:
+    """The `n` per-block trees of a stacked parameter tree, each leaf
+    unbound once: `torch.unbind`'s backward stacks the blocks' gradients
+    once, where indexing `t[blk]` would add a leaf-sized zero tensor per
+    block."""
+    split = tree_map(lambda t: t.unbind(0), stacked)
+    return [tree_map(lambda u: u[i], split,
+                     is_leaf=lambda x: isinstance(x, tuple)) for i in range(n)]
+
+
 def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
                   width, encoder_out=None):
     """Walk the blocks in order, summing the layers' aux losses in the
     reference scan's order (a Python 0.0 while no MoE layer has run).
     Each layer's cache slice is a tree of views into the stacked
-    (blocks, B, ...) tensors, so its writes land in place."""
+    (blocks, B, ...) tensors, so its writes land in place. A training
+    forward runs the blocks in groups of `cfg.remat_group` (1 where it
+    does not divide the blocks, as the reference), each group under
+    `checkpoint` when `cfg.remat`."""
     pattern = cfg.layer_pattern()
+    if _training(cache_layers):
+        blocks = [_unbound(lp, cfg.n_blocks) for lp in params["layers"]]
+        g = max(cfg.remat_group, 1)
+        if cfg.n_blocks % g:
+            g = 1
+
+        def group(x, aux, blk0):
+            for blk in range(blk0, blk0 + g):
+                for i, spec in enumerate(pattern):
+                    x, a = block_forward(x, spec, blocks[i][blk], cfg, rope,
+                                         None, index, width, encoder_out)
+                    aux = aux + a
+            return x, aux
+
+        aux = 0.0
+        for blk0 in range(0, cfg.n_blocks, g):
+            if cfg.remat:
+                x, aux = checkpoint(group, x, aux, blk0, use_reentrant=False)
+            else:
+                x, aux = group(x, aux, blk0)
+        return x, None, aux
+
     aux = 0.0
     for blk in range(cfg.n_blocks):
         for i, spec in enumerate(pattern):
@@ -280,17 +329,26 @@ def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
 def encoder_forward(embeds, params, cfg: ModelConfig):
     """The whisper encoder over frame embeddings (B, encoder_seq, D): a
     sinusoid added, then pre-norm attention layers without RoPE and
-    without a mask, and a final norm."""
+    without a mask, and a final norm. In training each layer runs under
+    `checkpoint` when `cfg.remat`."""
     x = embeds + _sinusoid(cfg.encoder_seq, cfg.d_model,
                            embeds.device).to(embeds.dtype)
-    for i in range(cfg.encoder_layers):
-        p = tree_map(lambda t: t[i], params["layers"])
+
+    def layer(x, p):
         h = L.apply_norm(x, p["ln1"], cfg)
         q, k, v = L._qkv(h, p["attn"], cfg)
         o = ops.flash_attention(q, k, v, causal=False)
         x = x + L.attn_out(o, p["attn"], x.dtype)
         h = L.apply_norm(x, p["ln2"], cfg)
-        x = x + L.mlp_forward(h, p["mlp"], cfg)
+        return x + L.mlp_forward(h, p["mlp"], cfg)
+
+    if _training():
+        for p in _unbound(params["layers"], cfg.encoder_layers):
+            x = (checkpoint(layer, x, p, use_reentrant=False) if cfg.remat
+                 else layer(x, p))
+    else:
+        for i in range(cfg.encoder_layers):
+            x = layer(x, tree_map(lambda t: t[i], params["layers"]))
     return L.apply_norm(x, params["final_norm"], cfg)
 
 
@@ -387,3 +445,18 @@ def _cache_seq_width(cache_layers) -> int:
         if "k" in sl:
             return sl["k"].shape[2]   # (blocks, B, W, KVH, hd)
     return 0
+
+
+# --------------------------------------------------------------------- #
+# loss
+# --------------------------------------------------------------------- #
+
+def lm_loss(logits, labels, aux=0.0, aux_weight: float = 0.01):
+    """Mean token cross-entropy in f32 (f64 for an f64 model): the
+    logsumexp of each row's logits minus its label's logit, plus
+    `aux_weight * aux`. The label logit is gathered; the reference's
+    one-hot contraction adds zeros to it, the same value."""
+    lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
+    lse = torch.logsumexp(lf, dim=-1)
+    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return (lse - ll).mean() + aux_weight * aux

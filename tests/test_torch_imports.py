@@ -63,7 +63,12 @@ def test_entry_points_default_to_the_card():
                                       serve_decode)
     from repro_torch.configs import REDUCED
     from repro_torch.core.bank_parallel import BankGrid
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.examples import train_lm
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import (HParams, LoopConfig, TrainLoop,
+                                   make_batch)
     from repro_torch.models import init_cache, init_params
     from repro_torch.dispatch import workloads
     from repro_torch.serve import ServeEngine
@@ -98,7 +103,13 @@ def test_entry_points_default_to_the_card():
                  lambda: prim_multibank.main([]),
                  lambda: dispatch_demo.main([]),
                  lambda: serve_decode.main([]),
-                 lambda: gateway_serve.main([])):
+                 lambda: gateway_serve.main([]),
+                 lambda: TrainLoop(cfg, ShapeConfig("t", 8, 1, "train"),
+                                   HParams(), LoopConfig()),
+                 lambda: make_batch(cfg, ShapeConfig("t", 8, 1, "train"), 0),
+                 lambda: launch_train.main(["--arch", "granite-3-8b",
+                                            "--reduced"]),
+                 lambda: train_lm.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
 
@@ -106,7 +117,12 @@ def test_entry_points_default_to_the_card():
 def test_launcher_serves_through_dispatch_on_the_cpu(capsys):
     """`launch.serve --engine dispatch --device cpu` serves a REDUCED
     config through the planner-routed steps."""
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.examples import train_lm
     from repro_torch.launch import serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import (HParams, LoopConfig, TrainLoop,
+                                   make_batch)
     assert serve.main(["--arch", "granite-3-8b", "--reduced", "--device",
                        "cpu", "--engine", "dispatch", "--prefill-chunk",
                        "4", "--requests", "3", "--max-new", "3"]) == 0

@@ -185,7 +185,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                             torch.zeros(1, 6, 2, 16))
     assert kda.KERNEL.launches == 0 and kfa.KERNEL.launches == 0
     assert set(ops.kernels()) == {"decode_attention", "flash_attention",
-                                  "va", "reduction", "stream_ops", "gemv",
+                                  "flash_attention_bwd", "va", "reduction", "stream_ops", "gemv",
                                   "scan_blocks", "add_offsets",
                                   "scan_lookback", "histogram", "ts_dists",
                                   "transpose"}

@@ -197,7 +197,8 @@ def test_stream_cuda_wrappers_refuse_cpu_tensors():
     for mod in (kva, kgemv, kred, kmb):
         assert mod.KERNEL.launches == 0
     assert set(ops.kernels()) == {"decode_attention", "flash_attention",
-                                  "va", "reduction", "stream_ops", "gemv",
+                                  "flash_attention_bwd", "va", "reduction",
+                                  "stream_ops", "gemv",
                                   "scan_blocks", "add_offsets",
                                   "scan_lookback", "histogram", "ts_dists",
                                   "transpose"}

@@ -1,15 +1,17 @@
 """The suitability entry point of the port (`repro_torch.benchmarks.
 suitability_bench`) against the reference's (`benchmarks/
 suitability_bench.py`): the same programs — the nine PrIM `ref`s at
-n = 4096 and REDUCED granite-3-8b's prefill (4 x 64 tokens into a 4 x 128
-cache) and decode (4 x 1) — counted by the port's census and by the
-reference's HLO census, and scored by each side's `suitability.score`.
+n = 4096 and REDUCED granite-3-8b's train step (4 x 64 tokens, forward,
+backward and AdamW), prefill (4 x 64 tokens into a 4 x 128 cache) and
+decode (4 x 1) — counted by the port's census and by the reference's HLO
+census, and scored by each side's `suitability.score`.
 
 What is held:
   * KT1, KT2, KT3, PIM-suitable and memory-bound equal on every row, and
     equal to `chip_smoke.SUITABILITY_VERDICTS`, which phase 13 holds the
     card's run to;
-  * the matrix-product FLOPs of the LM steps equal exactly;
+  * the matrix-product FLOPs of the prefill and decode steps equal
+    exactly, the train step's within BAND of the ratio stated below;
   * OI and the element count of each op class (summed over dtype
     classes), port over reference, within a factor BAND of the ratio
     measured on this tree (CPU; jax 0.9.0, torch 2.13), stated below
@@ -41,7 +43,10 @@ from repro.configs import REDUCED
 from repro.core.hlo_analysis import analyze_hlo
 from repro.core.suitability import score as j_score
 from repro.dispatch.graph import ops_from_hlo
+from repro.configs.shapes import ShapeConfig
 from repro.models import Shardings, forward, init_cache, init_params
+from repro.train import DataConfig, HParams, adamw_init, make_batch, \
+    make_train_step
 from repro_torch import prim
 from repro_torch.benchmarks import run as bench_run
 from repro_torch.benchmarks import suitability_bench as sb
@@ -51,7 +56,8 @@ from repro_torch.core.suitability import score
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
-ROWS = list(sb.PRIM_ROWS) + ["prefill", "decode"]
+LM_ROWS = ("train", "prefill", "decode")
+ROWS = list(sb.PRIM_ROWS) + list(LM_ROWS)
 BAND = 1.1
 
 #: OI of the census over the reference's, measured on this tree
@@ -66,6 +72,7 @@ OI_RATIO = {
     "TRNS": None,          # both inf: a transpose moves no counted byte
     "TS": 13.928,          # ref: one flop per fusion output element
     "HST-S": 0.25598,      # census: the boolean-mask index and bincount
+    "train": 0.94670,      # see the train row's op classes below
     "prefill": 1.7259,     # ref: CPU dynamic-slices of stacked weights
     "decode": 4.0715,      #   in its layer loop, each charged twice
 }
@@ -82,6 +89,12 @@ CLASS_RATIO = {
     "TRNS": {},
     "TS": {"add": 0.33333, "compare": 0.11091, "mul": 1.0, "sub": 1.0},
     "HST-S": {"bitwise": 1.0, "compare": None, "mul": 1.0},
+    # the port's backward recomputes P = exp(S - lse) from the saved
+    # log-sum-exp (transc, sub) where XLA's keeps the softmax; its masks
+    # are `&=` of bools (bitwise), XLA's compares
+    "train": {"add": 1.0084, "bitwise": None, "compare": 0.40251,
+              "div": 1.4604, "mul": 0.99862, "sub": 1.4406,
+              "transc": 1.9393},
     "prefill": {"add": 0.99765, "bitwise": None, "compare": 0.47730,
                 "div": 1.2369, "mul": 0.99293, "sub": 0.65517,
                 "transc": 1.0000},
@@ -113,6 +126,7 @@ KEY_DIFF = {
               {("mul", "int32"), ("bitwise", "int32")}),
     # the plain attention's causal mask is `&=` and `~` of bools
     # (kernels/ref.py); XLA clamps its dynamic-slice offsets in int32
+    "train": ({("bitwise", "int8")}, {("compare", "int32"), ("sub", "int32")}),
     "prefill": ({("bitwise", "int8")}, {("compare", "int32")}),
     # the ring slot is `index % width` in int64 (models/cache.py); XLA's
     # scatter index arithmetic is int32
@@ -129,10 +143,22 @@ def _j_prim(name):
     return (lambda *a: fn(*a)), arrays
 
 
+#: the train step's dot FLOPs, census over the reference's, measured on
+#: this tree: the port's backward recomputes the scores Q K^T from the
+#: saved log-sum-exp (one more S x S product a layer) where XLA's
+#: backward of the plain attention reuses the softmax
+TRAIN_DOT_RATIO = 1.0175
+
+
 def _j_lm(step):
     key = jax.random.PRNGKey(0)
     cfg, shd = REDUCED["granite-3-8b"], Shardings(None)
     params = init_params(key, cfg, shd)
+    if step == "train":
+        batch = make_batch(cfg, ShapeConfig("b", 64, 4, "train"), 0,
+                           DataConfig())
+        return (make_train_step(cfg, shd, HParams()),
+                (params, adamw_init(params, cfg), batch))
     cache = init_cache(cfg, 4, 128, shd)
     toks = jnp.ones((4, 64 if step == "prefill" else 1), jnp.int32)
     return (lambda p, c, t: forward(p, cfg, shd, tokens=t, cache=c)[0],
@@ -145,12 +171,10 @@ def reference():
     bench compiles them (trip_count_fallback=4)."""
     out = {}
     for name in ROWS:
-        fn, args = _j_lm(name) if name in ("prefill", "decode") \
-            else _j_prim(name)
+        fn, args = _j_lm(name) if name in LM_ROWS else _j_prim(name)
         text = jax.jit(fn).lower(*args).compile().as_text()
         an = analyze_hlo(text, trip_count_fallback=4)
-        machine = "tpu_v5e" if name in ("prefill", "decode") \
-            else "upmem_2556"
+        machine = "tpu_v5e" if name in LM_ROWS else "upmem_2556"
         out[name] = (an, ops_from_hlo(text, 4),
                      j_score(an, name=name, machine=machine))
     return out
@@ -176,7 +200,7 @@ def port():
 
 
 def _verdict(name, rep):
-    if name in ("prefill", "decode"):
+    if name in LM_ROWS:
         return rep.memory_bound
     return (rep.memory_bound, rep.simple_ops, rep.low_comm,
             rep.pim_suitable)
@@ -243,6 +267,11 @@ def test_op_keys_differ_only_as_listed(name, reference, port):
 @pytest.mark.parametrize("name", ["prefill", "decode"])
 def test_lm_dot_flops_equal_exactly(name, reference, port):
     assert port[name][0].dot_flops == reference[name][0].dot_flops
+
+
+def test_train_dot_flops_within_their_band(reference, port):
+    r = port["train"][0].dot_flops / reference["train"][0].dot_flops
+    assert TRAIN_DOT_RATIO / BAND <= r <= TRAIN_DOT_RATIO * BAND, r
 
 
 def test_entry_point_prints_the_verdicts():
