@@ -15,8 +15,8 @@ Phases, each of which raises (exit code != 0) on failure:
    library counts the integer adds per element of its k = 128 instance,
    which must be at least 128 (no compiler folded the chain), and the
    pipes they use give the add rate of the bounds (SMs x lanes x
-   clocks.max.sm); and the tensor-core flash instantiations must hold
-   HMMA instructions.
+   clocks.max.sm); and the tensor-core flash instantiations, forward and
+   backward, must hold HMMA instructions.
 3. Attention kernels against their plain PyTorch versions, at the serving
    path's shapes and at the reference test sweep's, in f32 and bf16, plus
    rows with no unmasked key (window > 0, q_pos >= Skv + window - 1),
@@ -259,15 +259,19 @@ Phases, each of which raises (exit code != 0) on failure:
    (d 8192, d_inner 16384), bf16, a 1000-token prefill and 8 steps, within
    MAMBA_BF16_BAND of an f64 run of the same layer.
 
-17. Training (PR 23): (a) the flash backward kernel on BWD_CASES in f32
-   and bf16 (granite's train_4k shape, scores in the hundreds, a causal
-   window, whisper's encoder and cross-attention, a ragged S): dq, dk,
-   dv within BWD_BAND of f64 or no further than the plain version in the
+17. Training, with the flash backward on its two routes: (a) the
+   flash backward kernel on BWD_CASES (granite's train_4k shape, scores
+   in the hundreds, a causal window, whisper's encoder and
+   cross-attention, a ragged S) in f32 on the CUDA-core route and in
+   bf16 on the tensor-core route (every case has hd 128 or 64; each row
+   records its route and fails on another): dq, dk, dv within BWD_BAND
+   of f64 or no further than the plain version in the
    same dtype, two launches bit-equal, the forward's log-sum-exp within
    LSE_TOL of torch.logsumexp in f64 and its output bits unchanged;
    timed at granite's shape (graph replay and launched) beside its bound
    (10 flops per unmasked pair and head dim: 2.5x the forward's) and
-   scaled_dot_product_attention forward plus backward. (b) granite-3-8b
+   scaled_dot_product_attention forward plus backward, with its TFLOP/s
+   at 10 flops and at the tensor-core design's 14. (b) granite-3-8b
    at full width, 2 layers, f32: `loss_fn`'s gradients through the
    kernels, through the plain primitives on the card and in f64, every
    leaf within GRAD_F64_FACTOR of the plain path's distance. (c) the main
@@ -275,9 +279,12 @@ Phases, each of which raises (exit code != 0) on failure:
    TrainLoop on B 2 x 4096 for 6 steps, then a run that fails at step 4
    and resumes from the step-3 checkpoint, bit-equal at the end; 16
    flash forward (8 plus 8 remat) and 8 backward launches a step; ms/step,
-   tokens/s, peak memory, losses (a `{"train": ...}` JSON line). (d)
+   tokens/s, peak memory, losses (a `{"train": ...}` JSON line), logged
+   beside CUDA_CORE_TRAIN's; every backward launch on the tensor-core
+   route. (d)
    `python -m repro_torch.launch.train` on whisper-tiny (B 4, seq 448),
-   4 steps, then 6: resumes; 24 forward and 12 backward launches a step.
+   4 steps, then 6: resumes; 24 forward and 12 backward launches a step,
+   the backward's on the tensor-core route.
 
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
@@ -290,7 +297,8 @@ wrapping schedules and starcoder2-7b's full-width run), and its
 `gateway_launches` those of phase 15, its `zoo_launches` those of
 phase 16's counted runs, and its `train_launches` those of phase 17
 (c)'s two runs (`flash_attention_bwd`'s `launches` are those too: no
-earlier phase runs it). The last line is
+earlier phase runs it; its `route_launches` split them by route). The
+last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -514,6 +522,11 @@ GRAD_F64_FACTOR = 2.0
 TRAIN_ARCH, TRAIN_LAYERS = "granite-3-8b", 8
 TRAIN_BATCH, TRAIN_SEQ = 2, 4096
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 6, 3, 4
+# phase 17 (c) with the backward on CUDA cores, before its tensor-core
+# route (two whole runs, NVIDIA H100 80GB HBM3, 700 W), logged beside
+# this run's
+CUDA_CORE_TRAIN = {"ms_per_step": (1013.43, 1021.16),
+              "tokens_per_s": (8022.2, 8083.4), "peak_bytes": 31193094144}
 # phase 17 (d): launch.train on whisper-tiny at full width and depth, then
 # again to more steps (it resumes); per step the flash forward runs 4
 # encoder, 4 self and 4 cross-attention layers twice (remat) and the
@@ -661,6 +674,28 @@ def card_times(kernel, plain, library, sets, plain_reps=7,
     if library is not None:
         out["library_ms"] = graph_ms(library, sets)
         out["library_launched_ms"] = median_ms(library, sets)
+    return out
+
+
+def kernel_device_ms(fn, args, match: str, n: int = 3) -> dict:
+    """Device time (ms) per call of each CUDA kernel whose name holds
+    `match`, under torch.profiler over `n` calls; {} if the profiler
+    recorded no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn(*args)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and match in e.key:
+            name = re.sub(r"\(.*$", "", re.sub(
+                r"^void |\(anonymous namespace\)::", "", e.key))
+            out[name] = out.get(name, 0.0) + e.self_device_time_total \
+                / n / 1e3
     return out
 
 
@@ -1319,12 +1354,16 @@ def bulk_copy_counts(_build) -> dict:
 
 
 def hmma_counts(_build) -> dict:
-    """HMMA instructions in the SASS of each tensor-core flash kernel."""
-    funcs = sass_functions(_build.build_dir() / "libflash_attention.so",
-                           _build.find_nvcc())
-    counts = {kernel_label(n): sum(opcode(i).startswith("HMMA") for i in body)
-              for n, body in funcs.items() if "flash_mma_kernel" in n}
-    if not counts or not all(counts.values()):
+    """HMMA instructions in the SASS of each tensor-core flash kernel, the
+    forward's and the backward's."""
+    counts = {}
+    for stem in ("flash_attention", "flash_attention_bwd"):
+        funcs = sass_functions(_build.build_dir() / f"lib{stem}.so",
+                               _build.find_nvcc())
+        counts.update({kernel_label(n): sum(opcode(i).startswith("HMMA")
+                                            for i in body)
+                       for n, body in funcs.items() if "mma_kernel" in n})
+    if not any("bwd" in k for k in counts) or not all(counts.values()):
         raise AssertionError(f"tensor-core flash kernels without HMMA "
                              f"instructions in their SASS: {counts}")
     return counts
@@ -3768,6 +3807,9 @@ def bwd_case(ref, case, dtype, gen, timed, device="cuda"):
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import flash_attention_bwd as kfb
     b, sq, skv, h, kvh, hd, causal, window, label, qscale = case
+    # every case has hd 128 or 64: bf16 on the tensor cores, f32 on CUDA
+    # cores
+    want_route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
     mk = lambda *s: torch.randn(*s, generator=gen, device=device)
     q = (mk(b, sq, h, hd) * qscale).to(dtype)
     k, v, do = (mk(b, skv, kvh, hd).to(dtype), mk(b, skv, kvh, hd).to(dtype),
@@ -3777,8 +3819,15 @@ def bwd_case(ref, case, dtype, gen, timed, device="cuda"):
     if not torch.equal(o, o_plain_bits):
         raise AssertionError(f"flash forward {label} {dtype}: asking for the "
                              f"log-sum-exp changed the output bits")
+    before = dict(kfb.KERNEL.route_launches)
     grads = kfb.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
     again = kfb.flash_attention_bwd(q, k, v, o, lse, do, causal, window)
+    launched = {r: n - before.get(r, 0)
+                for r, n in kfb.KERNEL.route_launches.items()
+                if n - before.get(r, 0)}
+    if device == "cuda" and launched != {want_route: 2}:
+        raise AssertionError(f"flash backward {label} {dtype}: launches by "
+                             f"route {launched}, want 2 on {want_route}")
     if not all(torch.equal(a, c) for a, c in zip(grads, again)):
         raise AssertionError(f"flash backward {label} {dtype}: two launches "
                              f"gave different bits")
@@ -3802,6 +3851,7 @@ def bwd_case(ref, case, dtype, gen, timed, device="cuda"):
                    f"causal{int(causal)} window{window}"
                    + (f" q x {qscale:g}" if qscale != 1 else ""),
            "dtype": str(dtype).split(".")[-1],
+           "route": kfb.route(dtype, hd),
            "fwd_route": kfa.route(dtype, hd), "lse_rel_err": lse_err,
            "lse_plain_rel_err": lse_plain, "failures": [],
            "max_abs_err": max(max_abs_err(a, w) for a, w in zip(grads, g64)),
@@ -3854,7 +3904,13 @@ def bwd_case(ref, case, dtype, gen, timed, device="cuda"):
         return torch.autograd.grad(out, (qt, kt, vt), do.transpose(1, 2))
     with torch.enable_grad():
         row["library_ms"] = median_ms(library, sets, reps=3, per_rep=3)
+    # TFLOP/s at the least work (10 flops a pair and head dim) and at the
+    # tensor-core design's 14 (S and dP computed in both kernels)
     row["achieved_tflops"] = row["flops"] / row["ms"] / 1e9
+    row["achieved_tflops_design"] = row["flops"] * 1.4 / row["ms"] / 1e9
+    # the three launches' shares (D pre-pass, dK/dV, dQ), by the profiler
+    row["kernel_ms"] = kernel_device_ms(kernel, sets[0], "bwd_") \
+        or "not measured"
     return row
 
 
@@ -3978,6 +4034,7 @@ def train_main_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
     from repro_torch.configs import get_arch
     from repro_torch.configs.shapes import ShapeConfig
     from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfb
     from repro_torch.train import (DataConfig, HParams, InjectedFailure,
                                    LoopConfig, TrainLoop, make_batch)
     from repro_torch.train.optimizer import leaves
@@ -4026,6 +4083,12 @@ def train_main_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
         if device == "cuda" and routes["cuda_core"]:
             raise AssertionError(f"training: flash routes {routes}, want "
                                  f"tensor cores only (bf16, hd 128)")
+        bwd_routes = dict(kfb.KERNEL.route_launches)
+        want_bwd = {"tensor_core": per_step["flash_attention_bwd"]
+                    * TRAIN_STEPS}
+        if device == "cuda" and bwd_routes != want_bwd:
+            raise AssertionError(f"training: flash backward routes "
+                                 f"{bwd_routes}, want {want_bwd}")
         losses = [m["loss"] for m in loop.metrics_log]
         if not all(math.isfinite(x) for x in losses):
             raise AssertionError(f"training losses {losses}")
@@ -4063,6 +4126,8 @@ def train_main_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
         redone = TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_CKPT_EVERY
         launches2 = read_counts(kernels, "crash-and-resume run",
                                 {k: n * redone for k, n in per_step.items()})
+        for r, n in kfb.KERNEL.route_launches.items():
+            bwd_routes[r] = bwd_routes.get(r, 0) + n
         after = [m["loss"] for m in resume.metrics_log]
         same = sum(torch.equal(a, b.to("cpu")) for a, b in zip(
             final, leaves({"p": state.params, "o": state.opt})))
@@ -4082,7 +4147,7 @@ def train_main_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
     tokens = TRAIN_BATCH * seq
     out = {"ms_per_step": step_ms, "tokens_per_s": tokens / step_ms * 1e3,
            "peak_bytes": peak, "losses": losses, "run_s": secs,
-           "crash_resume_s": secs2,
+           "crash_resume_s": secs2, "bwd_route_launches": bwd_routes,
            "model_tflop_per_step": cfg.model_flops(tokens=tokens,
                                                    train=True) / 1e12}
     log(f"  training: {step_ms:.2f} ms/step (median of {TRAIN_STEPS}, host "
@@ -4090,6 +4155,10 @@ def train_main_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
         f"peak {peak:,} bytes; {secs:.1f} s for the run, {secs2:.1f} s for "
         f"the crash-and-resume run (checkpoints included); model "
         f"{out['model_tflop_per_step']:.1f} TFLOP a step (6 N D)")
+    log(f"  beside the backward on CUDA cores (CUDA_CORE_TRAIN): "
+        + "; ".join(f"{k} {out[k]:.6g} against {v}"
+                    for k, v in CUDA_CORE_TRAIN.items())
+        + f"; flash backward launches by route {bwd_routes}")
     return {k: launches[k] + launches2[k] for k in launches}, out
 
 
@@ -4143,6 +4212,11 @@ def train_entry_point(device=None, reduced=False):
                 if got != want:
                     raise AssertionError(f"launch.train launches {got}, "
                                          f"want {want}")
+                bwd = counts[0]["flash_attention_bwd"]["routes"]
+                if bwd != {"tensor_core": want["flash_attention_bwd"]}:
+                    raise AssertionError(f"launch.train: whisper's flash "
+                                         f"backward routes {bwd}, want "
+                                         f"tensor cores only (bf16, hd 64)")
                 for k, c in counts[0].items():
                     total[k] = total.get(k, 0) + c["launches"]
     finally:
@@ -4385,6 +4459,8 @@ def main() -> int:
             "gateway_launches": launches15[name],
             "zoo_launches": launches16[name],
             "train_launches": launches17[name],
+            **({"route_launches": trained["bwd_route_launches"]}
+               if name == "flash_attention_bwd" else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]})

@@ -229,3 +229,148 @@ def test_chunked_flash_attention_refuses_ragged_chunks():
     x = torch.zeros(1, 12, 2, 8)
     with pytest.raises(ValueError, match="multiples"):
         TL.flash_attention(x, x, x, tcfg)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    (torch.bfloat16, 64, "tensor_core"),      # whisper
+    (torch.bfloat16, 128, "tensor_core"),     # granite and the rest
+    (torch.bfloat16, 16, "tensor_core"),
+    (torch.float32, 128, "cuda_core"),        # f32 held to f64 at 1e-4
+    (torch.float32, 64, "cuda_core"),
+    (torch.bfloat16, 72, "cuda_core"),        # not a multiple of 16
+    (torch.bfloat16, 256, "cuda_core"),       # above TC_MAX_HEAD_DIM
+], ids=str)
+def test_backward_route(dtype, hd, want):
+    assert kfb.route(dtype, hd) == want
+    assert want in kfb.ROUTES
+
+
+def test_backward_refuses_other_dtypes():
+    """The wrapper's checks raise before the device check, on the CPU
+    too: f16 (read as f32 it would be garbage), mixed dtypes."""
+    q, k, v, do = _inputs(CASES["granite-causal-gqa"], torch.float16)
+    out = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        kfb.flash_attention_bwd(q, k, v, out, lse, do)
+    with pytest.raises(ValueError, match="one dtype"):
+        kfb.flash_attention_bwd(q.float(), k, v, out, lse, do)
+    assert kfb.KERNEL.launches == 0
+
+
+# --------------------------------------------------------------------- #
+# the tensor-core route's rounding points, rehearsed in f32
+# --------------------------------------------------------------------- #
+
+def _bf16(x):
+    """x rounded to bf16, kept as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _tensor_core_grads(q, k, v, out, lse, do, causal, window,
+                       operands="bf16", dtype=torch.float32):
+    """The tensor-core route's arithmetic in `dtype`: q, k, v, dO, O as the
+    kernel reads them (bf16 values); S and dP as sums of exact products;
+    P = exp2(S scale log2 e - L log2 e) and dS = P (dP - D), D =
+    rowsum(dO o O); P and dS as the operands of dV = P^T dO,
+    dK = dS^T Q / sqrt(hd), dQ = dS K / sqrt(hd): rounded to bf16
+    (`operands` "bf16"), split into bf16 hi + lo ("split", mma_bf16.cuh's
+    split_bf16) or kept ("exact"). Gradients unrounded, GQA's group
+    summed."""
+    b, sq, h, hd = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    q, k, v, do, out = (t.to(dtype) for t in (q, k, v, do, out))
+    kw, vw = (torch.repeat_interleave(t, g, dim=2) for t in (k, v))
+    log2e = 1.4426950408889634
+    scale = 1.0 / np.sqrt(hd)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, kw)
+    qp, kp = torch.arange(sq)[:, None], torch.arange(skv)[None, :]
+    mask = torch.ones(sq, skv, dtype=torch.bool)
+    if causal:
+        mask &= qp >= kp
+    if window:
+        mask &= qp - kp < window
+    l2 = (lse.to(torch.float32) * np.float32(log2e)).to(dtype)
+    p = torch.exp2(s * (scale * log2e) - l2[..., None]).masked_fill(~mask, 0)
+    d = (do * out).sum(-1).transpose(1, 2)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, vw)
+    ds = p * (dp - d[..., None])
+
+    def operand(x):
+        if operands == "exact":
+            return x
+        hi = _bf16(x.float())
+        return (hi + _bf16(x.float() - hi) if operands == "split"
+                else hi).to(dtype)
+    p_op, ds_op = operand(p), operand(ds)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p_op, do)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_op, kw) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds_op, q) * scale
+    dk = dk.reshape(b, skv, kvh, g, hd).sum(3)
+    dv = dv.reshape(b, skv, kvh, g, hd).sum(3)
+    return dq, dk, dv
+
+
+def _rel(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+# granite's causal GQA and whisper's unmasked attention at small sizes,
+# with q scaled so that scores reach the hundreds (chip_smoke.py phase 17
+# (a)'s second case), and at unit scale
+REHEARSAL = {
+    "granite-scores-in-the-hundreds": (1, 96, 96, 4, 2, 64, True, 0, 40.0),
+    "granite-causal-gqa": (2, 64, 64, 8, 2, 32, True, 0, 1.0),
+    "causal-window": (1, 96, 96, 4, 2, 16, True, 16, 1.0),
+    "whisper-cross": (2, 22, 75, 3, 3, 16, False, 0, 1.0),
+}
+
+
+def _rehearsal_inputs(name):
+    *case, qscale = REHEARSAL[name]
+    q, k, v, do = _inputs(case, torch.float32, seed=7)
+    return _bf16(q * qscale), _bf16(k), _bf16(v), _bf16(do), *case[6:]
+
+
+@pytest.mark.parametrize("name", list(REHEARSAL))
+def test_tensor_core_rounding_within_the_bf16_band(name):
+    """The route's rounding points (bf16 inputs, O, P and dS operands, f32
+    sums, bf16 gradients) stay within chip_smoke.py's BWD_BAND[bf16] (1e-2
+    of scale) of the f64 plain version on the same bf16 inputs: the band
+    phase 17 (a) holds the kernel to. Measured here 2.2e-3 to 7.7e-3, the
+    plain bf16 version 1.3e-3 to 7.7e-3: O's bf16 rounding (through D)
+    and the gradients' own dominate, the operands' adds ~2e-3."""
+    import chip_smoke
+    q, k, v, do, causal, window = _rehearsal_inputs(name)
+    out, lse = ref.flash_attention(q, k, v, causal, window, return_lse=True)
+    got = _tensor_core_grads(q, k, v, _bf16(out), lse, do, causal, window)
+    q64, k64, v64, do64 = (t.double() for t in (q, k, v, do))
+    o64, l64 = ref.flash_attention(q64, k64, v64, causal, window,
+                                   return_lse=True)
+    want = ref.flash_attention_bwd(q64, k64, v64, o64, l64, do64, causal,
+                                   window)
+    band = chip_smoke.BWD_BAND[torch.bfloat16]
+    for which, g, w in zip(("dq", "dk", "dv"), got, want):
+        err = _rel(_bf16(g), w)           # the kernel writes bf16
+        assert err <= band, f"{which} {err:.3g} of scale > {band}"
+
+
+@pytest.mark.parametrize("name", list(REHEARSAL))
+def test_tensor_core_split_operands_within_1e4(name):
+    """With P and dS split into bf16 hi + lo (the forward's remedy for P)
+    the operands keep about 16 bits: unrounded gradients within 1e-4 of
+    scale of the same formulas in f64 on the same O and L (what is left
+    is f32 sums over at most 96 keys and the f32 exponent, ~1e-6), and
+    closer than with plain bf16 operands (8 bits, ~1e-3)."""
+    q, k, v, do, causal, window = _rehearsal_inputs(name)
+    out, lse = ref.flash_attention(q, k, v, causal, window, return_lse=True)
+    args = (q, k, v, _bf16(out), lse, do, causal, window)
+    want = _tensor_core_grads(*args, operands="exact", dtype=torch.float64)
+    split = _tensor_core_grads(*args, operands="split")
+    plain = _tensor_core_grads(*args, operands="bf16")
+    for which, s, p, w in zip(("dq", "dk", "dv"), split, plain, want):
+        err_s, err_p = _rel(s, w), _rel(p, w)
+        assert err_s <= 1e-4, f"{which} split {err_s:.3g} of scale"
+        assert err_s < err_p, f"{which} split {err_s:.3g}, plain {err_p:.3g}"

@@ -4,12 +4,19 @@ kernels in interpret mode and its `kernels/ref.py`, over the sweeps of
 tests/test_kernels.py, plus the per-row-lengths decode form against the
 reference model's `layers.cached_attention`. The CUDA kernels themselves
 run only on the card (chip_smoke.py); here their wrappers are held to
-their argument checks.
+their argument checks, and every C entry point of `csrc/*.cu` to its
+ctypes binding (a pointer or a long long bound as an int is cut to 32 bits
+and fails only on the card).
 
 Tolerances are test_kernels.py's: 1e-4 at f32, 2e-2 (decode) and 3e-2
 (flash) at bf16."""
 
+import ctypes
 import dataclasses
+import importlib
+import pkgutil
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +29,10 @@ from repro.kernels import ref as jref
 from repro.models import Shardings
 from repro.models import cache as JC
 from repro.models import layers as JL
+import repro_torch.kernels as kernels_pkg
 from repro_torch import bridge
 from repro_torch.configs import REDUCED as T_REDUCED
+from repro_torch.kernels import _build
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import ops
@@ -189,3 +198,88 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                   "scan_blocks", "add_offsets",
                                   "scan_lookback", "histogram", "ts_dists",
                                   "transpose"}
+
+
+# --------------------------------------------------------------------- #
+# every C entry point of csrc/ against its ctypes binding
+# --------------------------------------------------------------------- #
+
+# a C parameter's type -> the ctypes type that passes it whole: a pointer
+# passed as c_int is cut to 32 bits, a long long to 32, and either fails
+# only on the card
+_CTYPE_OF = {"void*": ctypes.c_void_p, "int": ctypes.c_int,
+             "long long": ctypes.c_longlong}
+_ENTRY = re.compile(r'extern\s+"C"\s+([\w\s\*]+?)\s*\b(\w+)\s*\(([^)]*)\)',
+                    re.S)
+
+
+def _c_kind(param: str):
+    """The ctypes type of one C parameter ("const void* q" -> c_void_p)."""
+    words = param.replace("*", " * ").split()[:-1]     # drop the name
+    base = " ".join(w for w in words if w not in ("const", "*"))
+    return _CTYPE_OF["void*" if "*" in words else base]
+
+
+def _entry_points(src: Path) -> dict:
+    """name -> (return type, [ctypes type of each parameter]) of every
+    extern "C" function of one source."""
+    out = {}
+    for ret, name, params in _ENTRY.findall(src.read_text()):
+        params = [p.strip() for p in params.split(",") if p.strip()]
+        out[name] = (" ".join(ret.split()), [_c_kind(p) for p in params])
+    return out
+
+
+def _bindings() -> dict:
+    """(source stem, symbol) -> argtypes of every CudaKernel the kernel
+    modules define."""
+    out = {}
+    for mod in pkgutil.iter_modules(kernels_pkg.__path__):
+        m = importlib.import_module(f"repro_torch.kernels.{mod.name}")
+        for obj in vars(m).values():
+            if isinstance(obj, _build.CudaKernel):
+                out[(obj.stem, obj.symbol)] = list(obj.argtypes)
+    return out
+
+
+def test_entry_point_parser_reads_kinds():
+    assert _c_kind("const void* q") is ctypes.c_void_p
+    assert _c_kind("void *stream") is ctypes.c_void_p
+    assert _c_kind("long long n") is ctypes.c_longlong
+    assert _c_kind("int hd") is ctypes.c_int
+
+
+@pytest.mark.parametrize("src", _build.sources(), ids=lambda p: p.name)
+def test_c_entry_points_match_their_ctypes_bindings(src):
+    """Each `extern "C" int` entry point with parameters is bound by a
+    CudaKernel of the same source and symbol, whose argtypes give each
+    parameter its kind (void* <-> c_void_p, int <-> c_int, long long <->
+    c_longlong) in order; every binding of this source names an entry
+    point that exists; `error_string(int)` is there as `_build` binds it."""
+    entries = _entry_points(src)
+    bound = {sym: at for (stem, sym), at in _bindings().items()
+             if stem == src.stem}
+    assert entries.get("error_string") == ("const char*", [ctypes.c_int])
+    for sym in bound:
+        assert sym in entries, f"{src.name} has no entry point {sym}"
+    for name, (ret, kinds) in entries.items():
+        if name == "error_string" or (not kinds and name not in bound):
+            continue
+        assert ret == "int", f"{src.name} {name} returns {ret}"
+        assert name in bound, f"{src.name} {name} has no ctypes binding"
+        got = bound[name]
+        assert len(got) == len(kinds), \
+            f"{name}: {len(kinds)} C parameters, {len(got)} argtypes"
+        wrong = [(i, want.__name__, have.__name__)
+                 for i, (want, have) in enumerate(zip(kinds, got))
+                 if want is not have]
+        assert not wrong, f"{name}: parameters (index, C kind, ctypes) {wrong}"
+
+
+def test_every_kernel_is_bound():
+    """ops.kernels()'s launch counters are CudaKernels whose entry points
+    the sources have (the twelve kernels and scan's third symbol)."""
+    bound = _bindings()
+    for name, kern in ops.kernels().items():
+        assert (kern.stem, kern.symbol) in bound, name
+        assert kern.symbol in _entry_points(_build.CSRC / f"{kern.stem}.cu")
