@@ -26,7 +26,10 @@ Phases, each of which raises (exit code != 0) on failure:
    in bf16 also ragged Sq/Skv at hd 64 and 128, hd 16, 48, 72 and 256,
    q/k/v views that are not 16-byte aligned, decode lengths inside the
    first split, on a split boundary and at W not a multiple of the
-   split, and two decode launches compared bit for bit. Each row logs
+   split, and two decode launches compared bit for bit; every decode
+   row also asks for the kernel's log-sum-exp (its output bits
+   unchanged, the f32 lse within LSE_TOL of torch.logsumexp in f64: the
+   merge of a sequence-sharded cache weighs by it). Each row logs
    the route (flash) or the split count (decode) and the grid. Timings of
    the kernel, the plain version and one PyTorch library call
    (scaled_dot_product_attention, a yardstick the port never calls) by
@@ -286,6 +289,20 @@ Phases, each of which raises (exit code != 0) on failure:
    4 steps, then 6: resumes; 24 forward and 12 backward launches a step,
    the backward's on the tensor-core route.
 
+18. The mesh (`models.sharding`, `launch.mesh`): (a) phase 17 (c)'s
+   workload for 3 steps through TrainLoop without a mesh and on
+   `launch.train --mesh`'s (1, 1) NCCL mesh: every loss and leaf
+   bit-equal, every flash launch on tensor cores and every forward
+   through `local_map`, ms/step and peak bytes of both; `launch.train
+   --mesh` on whisper-tiny logging the unmeshed run's numbers bit for
+   bit. (b) the dry run (`launch.dryrun`) of every arch x shape on the
+   (16, 16) mesh and all but jamba's and rwkv's train and prefill cells
+   on the (2, 16, 16) mesh, over fake process groups, in 5 subprocesses
+   started before phase 1, each on a core of its own, the timed phases
+   on the other cores (DRYRUN_WORKERS); then the `roofline_bench` twin on
+   its records. (b) is waited for before (a) runs: the meshed step is
+   host-bound, and its time is read with no tracer on the host.
+
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
 for va, reduction and gemv, 7 for stream_ops, 8 for the PrIM bank-local
@@ -295,10 +312,10 @@ phases 11 and 12 (the two qwen2-moe serves, the kernel runs of the
 wrapping schedules and starcoder2-7b's full-width run), and its
 `dispatch_launches` those of phase 14's counted runs, its
 `gateway_launches` those of phase 15, its `zoo_launches` those of
-phase 16's counted runs, and its `train_launches` those of phase 17
+phase 16's counted runs, its `train_launches` those of phase 17
 (c)'s two runs (`flash_attention_bwd`'s `launches` are those too: no
-earlier phase runs it; its `route_launches` split them by route). The
-last line is
+earlier phase runs it; its `route_launches` split them by route), and
+its `mesh_launches` those of phase 18 (a)'s meshed runs. The last line is
 `{"ok": true, "device": {...}}`.
 """
 
@@ -536,6 +553,47 @@ WHISPER_TRAIN_ARGS = ["--arch", "whisper-tiny", "--batch", "4", "--seq",
                       "--log-every", "1"]
 TRAIN_CLI_STEPS = (4, 6)
 WHISPER_FWD_PER_STEP, WHISPER_BWD_PER_STEP = 24, 12
+# phase 18 (a): phase 17 (c)'s workload, MESH_STEPS steps without a mesh
+# and on launch.train --mesh's (1, 1) NCCL mesh; then launch.train --mesh
+# on whisper-tiny against the run without it, MESH_CLI_STEPS steps each
+MESH_STEPS, MESH_CLI_STEPS = 3, 2
+# phase 17 (c), two whole runs (NVIDIA H100 80GB HBM3, 700 W): ms/step
+PR24_TRAIN_MS = (489.29, 498.04)
+# phase 18 (b): the dry run, in subprocesses started before phase 1 (they
+# use host cores only, and their fake process groups must not share a
+# process with phase 18 (a)'s NCCL group). Each worker runs on a core of
+# its own and the main process on the others (`start_dryrun`), so that
+# the timed phases do not share their cores with the tracer. The train
+# and prefill cells of the archs whose recurrent scans are Python loops
+# (jamba's mamba, rwkv) take minutes each to trace: they run on the
+# (16, 16) mesh alone, a worker each; every other cell runs on both
+# meshes
+DRYRUN_OUT = "runs/dryrun_single.json"
+DRYRUN_WORKERS = (
+    (["--arch", "qwen2-vl-72b,mixtral-8x7b,qwen2-moe-a2.7b,deepseek-coder-33b,"
+      "starcoder2-7b,granite-3-8b,llama3-405b,whisper-tiny", "--shape", "all",
+      "--mesh", "both"],
+     ["--arch", "jamba-1.5-large-398b,rwkv6-3b", "--shape",
+      "decode_32k,long_500k", "--mesh", "both"]),
+    (["--arch", "jamba-1.5-large-398b", "--shape", "train_4k",
+      "--mesh", "single"],),
+    (["--arch", "jamba-1.5-large-398b", "--shape", "prefill_32k",
+      "--mesh", "single"],),
+    (["--arch", "rwkv6-3b", "--shape", "train_4k", "--mesh", "single"],),
+    (["--arch", "rwkv6-3b", "--shape", "prefill_32k", "--mesh", "single"],))
+# a worker: argv[1] its runs (each a list of dryrun arguments, `--out`
+# included), argv[2] its core
+DRYRUN_CODE = (
+    "import json, os, sys, torch\n"
+    "os.sched_setaffinity(0, {int(sys.argv[2])})\n"
+    "torch.set_num_threads(1)\n"
+    "from repro_torch.launch import dryrun\n"
+    "rcs = [dryrun.main(a) for a in json.loads(sys.argv[1])]\n"
+    "print(json.dumps({'dryrun_rcs': rcs, "
+    "'cuda_initialized': torch.cuda.is_initialized()}))\n"
+    "sys.exit(max(rcs))\n")
+# the reference's one skip reason (configs/shapes.py)
+DRYRUN_SKIP = "pure full-attention arch: 500k dense KV is quadratic-cost"
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -744,10 +802,29 @@ def decode_case(ops, ref, case, dtype, gen, timed):
     if not torch.equal(got, ops.decode_attention(q, k, v, lengths)):
         raise AssertionError(f"decode_attention {case} {dtype}: two launches "
                              f"gave different bits")
+    # the log-sum-exp the kernel returns on request (a sequence-sharded
+    # cache merges by it): the output's bits unchanged, the f32 lse
+    # within LSE_TOL of torch.logsumexp in f64
+    out, lse = ops._decode_forward(q, k, v, lens, True)
+    if not torch.equal(out, got):
+        raise AssertionError(f"decode_attention {case} {dtype}: asking for "
+                             f"the log-sum-exp changed the output's bits")
+    s64 = torch.einsum("bkgd,bwkd->bkgw",
+                       q.double().reshape(b, kvh, h // kvh, hd),
+                       k.double()) / hd ** 0.5
+    s64 = s64.masked_fill(~(torch.arange(w, device=dev)[None, :]
+                            < lens[:, None])[:, None, None], float("-inf"))
+    lse64 = torch.logsumexp(s64, -1).reshape(b, h)
+    lse_err = float(((lse.double() - lse64).abs()
+                     / (1 + lse64.abs())).max())
+    if lse.dtype != torch.float32 or lse_err > LSE_TOL:
+        raise AssertionError(f"decode_attention {case} {dtype}: log-sum-exp "
+                             f"{lse.dtype} off by {lse_err:.3g} of torch."
+                             f"logsumexp in f64 (limit {LSE_TOL})")
     splits = kda.splits_for(b, kvh, w, q.get_device())
     row = {"case": f"B{b} H{h} KVH{kvh} hd{hd} W{w} len{lengths}",
            "dtype": str(dtype).split(".")[-1], "max_abs_err": err,
-           "splits": splits, "chunk": -(-w // splits),
+           "lse_err": lse_err, "splits": splits, "chunk": -(-w // splits),
            "grid": f"{b}x{kvh}x{splits}={b * kvh * splits}",
            "bit_identical_twice": True}
     if not timed:
@@ -2303,8 +2380,8 @@ def recorded_dispatch(record):
     from repro_torch.models import layers as L
     saved = L.moe_dispatch
 
-    def fn(x, router, cfg):
-        out = saved(x, router, cfg)
+    def fn(x, router, cfg, *shd):
+        out = saved(x, router, cfg, *shd)
         record.append((out[1], out[0]))
         return out
     L.moe_dispatch = fn
@@ -4224,6 +4301,301 @@ def train_entry_point(device=None, reduced=False):
     return total
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the mesh
+# --------------------------------------------------------------------- #
+
+def mesh_train_path(kernels, device="cuda", reduced=False, seq=TRAIN_SEQ):
+    """Phase 18 (a): phase 17 (c)'s workload (granite-3-8b at published
+    widths, TRAIN_LAYERS layers, bf16, remat groups of 4, B TRAIN_BATCH x
+    `seq`) for MESH_STEPS steps through TrainLoop without a mesh, then
+    through TrainLoop on `launch.mesh.make_smoke_mesh()` with
+    TRAIN_POLICY, the path `launch.train --mesh` runs: a (1, 1) mesh over
+    a one-process NCCL group (gloo on the CPU). Every loss and every
+    parameter and moment leaf must be bit-equal; every flash forward and
+    backward launch of the meshed run must be one of phase 17's counts and
+    on the tensor-core route, each forward through `local_map`. Returns
+    the meshed run's launches and both runs' numbers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.shapes import ShapeConfig
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import flash_attention_bwd as kfb
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import TRAIN_POLICY, Shardings
+    from repro_torch.models.sharding import full
+    from repro_torch.train import HParams, LoopConfig, TrainLoop
+    from repro_torch.train.optimizer import leaves
+
+    cfg = dataclasses.replace(get_arch(TRAIN_ARCH, reduced=reduced),
+                              n_layers=TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k", seq, TRAIN_BATCH, "train")
+    hp = HParams(lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS)
+    want = {"flash_attention": 2 * cfg.n_blocks * MESH_STEPS,
+            "flash_attention_bwd": cfg.n_blocks * MESH_STEPS}
+
+    def run(shd, what):
+        reset_counts(kernels)
+        ops.SHARDED.reset()
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        loop = TrainLoop(cfg, shape, hp, LoopConfig(
+            total_steps=MESH_STEPS, ckpt_every=MESH_STEPS + 1, log_every=1),
+            device=device, shd=shd)
+        t0 = time.perf_counter()
+        state = loop.run(loop.init_state(SEED))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        out = {"losses": [m["loss"] for m in loop.metrics_log],
+               "ms_per_step": statistics.median(loop._durations) * 1e3,
+               "run_s": time.perf_counter() - t0,
+               "peak_bytes": (torch.cuda.max_memory_allocated()
+                              if device == "cuda" else 0),
+               "sharded": dict(ops.SHARDED.route_launches),
+               "fwd_routes": dict(kfa.KERNEL.route_launches),
+               "bwd_routes": dict(kfb.KERNEL.route_launches)}
+        out["launches"] = read_counts(kernels, what, want)
+        del loop
+        return state, out
+
+    state, plain = run(None, "phase 18 (a) without a mesh")
+    final = [t.to("cpu") for t in leaves({"p": state.params,
+                                          "o": state.opt})]
+    del state
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    shd = Shardings(make_smoke_mesh(device=None if device == "cuda"
+                                    else device), TRAIN_POLICY)
+    try:
+        state, meshed = run(shd, "phase 18 (a) on the (1, 1) mesh")
+        mine = leaves({"p": state.params, "o": state.opt})
+        same = sum(torch.equal(a, full(b).to("cpu"))
+                   for a, b in zip(final, mine))
+        n = len(final)
+        del state, mine, final
+    finally:
+        torch.distributed.destroy_process_group()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"  {cfg.name}, {cfg.n_layers} layers, B {TRAIN_BATCH} x S {seq}: "
+        f"losses without a mesh {plain['losses']}, on the (1, 1) mesh "
+        f"{meshed['losses']}; bit-identical leaves after step {MESH_STEPS}: "
+        f"{same} of {n}")
+    log(f"  ms/step (median of {MESH_STEPS}, host clock to the loss's sync): "
+        f"{plain['ms_per_step']:.2f} without a mesh, "
+        f"{meshed['ms_per_step']:.2f} on the mesh (phase 17 (c) in two "
+        f"earlier whole runs: {PR24_TRAIN_MS}); peak bytes "
+        f"{plain['peak_bytes']:,} and {meshed['peak_bytes']:,}; flash "
+        f"routes {meshed['fwd_routes']}, backward {meshed['bwd_routes']}, "
+        f"attention calls through local_map {meshed['sharded']}")
+    if same != n or meshed["losses"] != plain["losses"]:
+        raise AssertionError("the (1, 1) mesh changed the arithmetic: "
+                             f"{same} of {n} leaves equal")
+    if meshed["sharded"] != {"flash": want["flash_attention"]} or \
+            plain["sharded"]:
+        raise AssertionError(f"flash calls through local_map "
+                             f"{meshed['sharded']}, want "
+                             f"{want['flash_attention']} (and none "
+                             f"without a mesh: {plain['sharded']})")
+    if device == "cuda" and (
+            meshed["fwd_routes"] != {"tensor_core": want["flash_attention"]}
+            or meshed["bwd_routes"] != {
+                "tensor_core": want["flash_attention_bwd"]}):
+        raise AssertionError(f"phase 18 (a) routes {meshed['fwd_routes']}, "
+                             f"{meshed['bwd_routes']}: want tensor cores")
+    return meshed["launches"], {"plain": plain, "mesh": meshed}
+
+
+def mesh_entry_point(device=None, reduced=False):
+    """Phase 18 (a): `python -m repro_torch.launch.train --mesh` on
+    whisper-tiny at full width and depth (a subprocess, its own NCCL
+    group), against the same run without `--mesh`: logged losses, grad
+    norms and learning rates bit-equal; on the card, the meshed run's
+    launches are phase 17 (d)'s per step, on tensor cores, and every
+    flash forward ran through `local_map`. Returns the meshed run's
+    launches."""
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="mesh_cli_", dir=ROOT / "build")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    extra = (["--device", device] if device else []) + \
+        (["--reduced"] if reduced else [])
+    runs = {}
+    try:
+        for mesh in ([], ["--mesh"]):
+            cmd = [sys.executable, "-m", "repro_torch.launch.train",
+                   *WHISPER_TRAIN_ARGS, "--steps", str(MESH_CLI_STEPS),
+                   "--ckpt-dir", os.path.join(d, str(len(mesh))), *extra,
+                   *mesh]
+            run = subprocess.run(cmd, capture_output=True, text=True,
+                                 cwd=ROOT, env=env, timeout=600)
+            if run.returncode != 0:
+                raise AssertionError(f"{' '.join(cmd[2:])} exited "
+                                     f"{run.returncode}:\n"
+                                     f"{run.stderr[-3000:]}")
+            lines = run.stdout.splitlines()
+            runs[bool(mesh)] = (
+                [json.loads(x) for x in lines if x.startswith('{"step"')],
+                [json.loads(x) for x in lines
+                 if x.startswith('{"kernel_launches"')])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    (plain, _), (meshed, counts) = runs[False], runs[True]
+    log(f"  launch.train --mesh on whisper-tiny: logged {meshed}; without "
+        f"--mesh {plain}" + (f"; {counts[0]}" if counts else ""))
+    if not meshed or meshed != plain:
+        raise AssertionError("launch.train --mesh did not log the unmeshed "
+                             "run's losses bit for bit")
+    if device is not None:
+        return {}
+    c = counts[0]
+    got = {k: v["launches"] for k, v in c["kernel_launches"].items()}
+    want = {"flash_attention": WHISPER_FWD_PER_STEP * MESH_CLI_STEPS,
+            "flash_attention_bwd": WHISPER_BWD_PER_STEP * MESH_CLI_STEPS}
+    routes = {k: v["routes"] for k, v in c["kernel_launches"].items()}
+    if got != want or c["sharded_calls"] != {
+            "flash": want["flash_attention"]} or routes != {
+            k: {"tensor_core": n} for k, n in want.items()}:
+        raise AssertionError(f"launch.train --mesh: launches {got}, routes "
+                             f"{routes}, local_map calls "
+                             f"{c['sharded_calls']}; want {want} on tensor "
+                             f"cores, every forward through local_map")
+    return got
+
+
+def start_dryrun():
+    """Start phase 18 (b)'s dry run in the background: one subprocess per
+    DRYRUN_WORKERS entry, each pinned to a core of its own (the last
+    ones), and this process (and what it starts later) to the rest. Each
+    worker's output goes to build/dryrun_<i>.log, its runs' records to
+    runs/dryrun_<i>_<j>.json."""
+    import atexit
+    (ROOT / "build").mkdir(exist_ok=True)
+    cores = sorted(os.sched_getaffinity(0))
+    n = len(DRYRUN_WORKERS)
+    if len(cores) < n + 2:
+        raise AssertionError(f"the dry run wants {n} cores beside 2 for the "
+                             f"timed phases; this process has {cores}")
+    mine, theirs = cores[:-n], cores[-n:]
+    threads = torch.get_num_threads()
+    os.sched_setaffinity(0, mine)
+    torch.set_num_threads(len(mine))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for i, (runs, core) in enumerate(zip(DRYRUN_WORKERS, theirs)):
+        out = open(ROOT / "build" / f"dryrun_{i}.log", "w")
+        runs = [a + ["--out", f"runs/dryrun_{i}_{j}.json"]
+                for j, a in enumerate(runs)]
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", DRYRUN_CODE, json.dumps(runs), str(core)],
+            cwd=ROOT, env=env, stdout=out, stderr=subprocess.STDOUT,
+            text=True), out, runs))
+
+    def stop():                   # a failed phase leaves nothing running
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    atexit.register(stop)
+    log(f"  dry run: {n} workers on cores {theirs}, the timed phases on "
+        f"{mine}")
+    return procs, time.perf_counter(), (cores, threads)
+
+
+def dryrun_checks(started, timeout: float = 1000.0) -> dict:
+    """Phase 18 (b): wait for the dry run's workers, give this process
+    back every core, gate their records, merge them into DRYRUN_OUT and
+    run the roofline_bench twin on it.
+    Gates: every worker exits 0; every record `ok`, or `skip` with the
+    reference's reason; every arch x shape present on the (16, 16) mesh;
+    256 and 512 chips; no CUDA context in a worker; every decode cell of
+    an arch without MoE layers memory-dominant (the MoE decode cells'
+    terms and largest collectives are logged: their dominant term is the
+    modelled pod's finding, not a gate). Returns a summary."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.shapes import SHAPES
+
+    procs, t0, (cores, threads) = started
+    secs, records = [], []
+    for i, (proc, out, runs) in enumerate(procs):
+        try:
+            rc = proc.wait(timeout=max(timeout - (time.perf_counter() - t0),
+                                       1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"dry run worker {i} did not finish in "
+                                 f"{timeout:.0f} s")
+        finally:
+            out.close()
+        secs.append(round(time.perf_counter() - t0, 1))
+        text = (ROOT / "build" / f"dryrun_{i}.log").read_text()
+        for x in text.splitlines():
+            if x.startswith(("OK ", "FAIL ", "SKIP ")):
+                log(f"  {x}")
+        tail = [json.loads(x) for x in text.splitlines()
+                if x.startswith('{"dryrun_rcs"')]
+        if rc != 0 or not tail or any(tail[0]["dryrun_rcs"]):
+            raise AssertionError(f"dry run worker {i} exited {rc}:\n"
+                                 f"{text[-3000:]}")
+        if tail[0]["cuda_initialized"]:
+            raise AssertionError(f"dry run worker {i} created a CUDA "
+                                 f"context")
+        for run in runs:
+            path = ROOT / run[-1]
+            with open(path) as f:
+                records += json.load(f)
+            path.unlink()
+    # the workers are done: this process gets every core back
+    os.sched_setaffinity(0, cores)
+    torch.set_num_threads(threads)
+    with open(ROOT / DRYRUN_OUT, "w") as f:
+        json.dump(records, f, indent=1)
+    bad = [r for r in records if r["status"] not in ("ok", "skip")
+           or (r["status"] == "skip" and r["reason"] != DRYRUN_SKIP)]
+    ok = [r for r in records if r["status"] == "ok"]
+    chips = {r["n_chips"] for r in ok}
+    single = {(r["arch"], r["shape"]) for r in records
+              if r.get("n_chips") == 256 or r.get("mesh") == "single(16,16)"}
+    missing = [f"{a}/{s}" for a in ARCHS for s in SHAPES
+               if (ARCHS[a].name, s) not in single]
+    moe = {c.name for c in ARCHS.values()
+           if any(s.mlp == "moe" for s in c.layer_pattern())}
+    decode = [r for r in ok if r["kind"] == "decode"]
+    dense_not_memory = [f"{r['arch']}/{r['shape']}@{r['n_chips']}"
+                        for r in decode if r["arch"] not in moe
+                        and r["roofline"]["dominant"] != "memory"]
+    moe_terms = {f"{r['arch']}/{r['shape']}@{r['n_chips']}": {
+        **{k: r["roofline"][k] for k in ("dominant", "memory_s",
+                                         "collective_s")},
+        "hbm_bytes": r["hbm_bytes_per_device"],
+        "collective_bytes": r["collective_bytes_per_device"],
+        "largest_collectives": [
+            {k: c[k] for k in ("opcode", "bytes", "count", "group_size")}
+            for c in r["collectives"][:4]]}
+        for r in decode if r["arch"] in moe}
+    log(f"  dry run: {len(ok)} ok, "
+        f"{sum(r['status'] == 'skip' for r in records)} skipped; workers "
+        f"done at {secs} s after their start (before phase 1); MoE decode "
+        f"cells: {json.dumps(moe_terms)}")
+    if bad or chips != {256, 512} or dense_not_memory or missing:
+        raise AssertionError(f"dry run: bad records {bad[:3]}, chips "
+                             f"{chips}, decode cells not memory-dominant "
+                             f"{dense_not_memory}, cells missing on the "
+                             f"(16, 16) mesh {missing}")
+    text = io.StringIO()
+    with redirect_stdout(text):
+        rc = bench_run.main(["roofline_bench"])
+    table = text.getvalue()
+    print(table[-6000:])
+    if rc != 0 or f"from {DRYRUN_OUT}" not in table:
+        raise AssertionError(f"roofline_bench exited {rc}")
+    return {"ok": len(ok), "records": len(records), "seconds": secs,
+            "moe_decode": moe_terms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4231,6 +4603,7 @@ def main() -> int:
         return 1
     from repro_torch.kernels import _build, ops, ref
 
+    dryrun = start_dryrun()
     log("phase 1: device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -4403,6 +4776,27 @@ def main() -> int:
         f"{time.perf_counter() - t17:.1f}s")
     log(json.dumps({"train": trained}))
 
+    log("phase 18: the mesh: the dry run on the production meshes "
+        "(subprocesses since phase 1) and the roofline_bench twin; then, "
+        "with no tracer running, phase 17 (c)'s workload on launch.train "
+        "--mesh's (1, 1) NCCL mesh against no mesh, and launch.train --mesh "
+        "on whisper-tiny")
+    t18 = time.perf_counter()
+    # (b) first: the meshed step's DTensor dispatch is host-bound, and
+    # (a) times it against no mesh with no tracer running on the host
+    dry = dryrun_checks(dryrun)
+    launches18, meshed = mesh_train_path(kernels)
+    torch.cuda.empty_cache()
+    cli18 = mesh_entry_point()
+    for k, n in cli18.items():
+        launches18[k] += n
+    log(json.dumps({"mesh": {k: {m: v[m] for m in ("losses", "ms_per_step",
+                                                   "peak_bytes", "run_s")}
+                             for k, v in meshed.items()}}))
+    log(f"  launches on the mesh path (phase 18 (a)): {launches18}; phase "
+        f"18 took {time.perf_counter() - t18:.1f}s; dry run {dry['ok']} of "
+        f"{dry['records']} records ok")
+
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]
     launches["stream_ops"] = launches7["stream_ops"]
@@ -4459,6 +4853,7 @@ def main() -> int:
             "gateway_launches": launches15[name],
             "zoo_launches": launches16[name],
             "train_launches": launches17[name],
+            "mesh_launches": launches18[name],
             **({"route_launches": trained["bwd_route_launches"]}
                if name == "flash_attention_bwd" else {}),
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

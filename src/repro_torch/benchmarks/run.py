@@ -12,9 +12,8 @@
   gateway_bench     serving gateway under seeded Poisson traffic:
                     sustained req/s + tail latency, plan-cache hit
                     rate, overload goodput, paper-scale projection
-
-The reference's `roofline_bench` reads the dry run's JSON and comes with
-`launch.dryrun` (ROADMAP Queue 1, item 18c).
+  roofline_bench    §Roofline: the dry run's table (runs/dryrun_single*.json
+                    from `launch.dryrun`), modelled TPU v5e pod terms
 
 Run: PYTHONPATH=src python -m repro_torch.benchmarks.run [module ...]
                                   [--device DEV] [--quick] [--trace OUT_JSON]
@@ -62,12 +61,13 @@ class Report:
 
 def main(argv=None) -> int:
     from . import (dispatch_bench, gateway_bench, microbench, prim_bench,
-                   scaling_bench, suitability_bench)
+                   roofline_bench, scaling_bench, suitability_bench)
     modules = {"microbench": microbench, "prim_bench": prim_bench,
                "suitability_bench": suitability_bench,
                "scaling_bench": scaling_bench,
                "dispatch_bench": dispatch_bench,
-               "gateway_bench": gateway_bench}
+               "gateway_bench": gateway_bench,
+               "roofline_bench": roofline_bench}
     ap = argparse.ArgumentParser(prog="repro_torch.benchmarks.run")
     ap.add_argument("modules", nargs="*", metavar="module",
                     help=f"any of {list(modules)} (default: all)")

@@ -2,8 +2,7 @@
 
 The same tables as `repro.configs`: `ARCHS` at published widths and
 `REDUCED` for tests. `shapes` holds the input-shape table (`ShapeConfig`,
-`SHAPES`); its dry-run specs (`input_specs`) come with `launch.dryrun`
-(ROADMAP Queue 1, item 18c)."""
+`SHAPES`) and the dry run's stand-ins (`input_specs`, `cache_specs`)."""
 
 from . import (deepseek_coder_33b, granite_3_8b, jamba_15_large,
                llama3_405b, mixtral_8x7b, qwen2_moe_a27b, qwen2_vl_72b,

@@ -53,14 +53,38 @@ Counting rules (the reference's, `hlo_analysis.py:381-558`):
     DESIGN.md §15) and adds at its accumulator's. `x & 0xFFFFFFFF` of an
     int64 is the port's spelling of a uint32 value and counts as the
     convert it stands for.
-  * One card has no collectives: `collective_bytes` is 0 and
-    `collectives` is empty. Exchange bytes reach the planner through
+  * A program on one device has no collectives: `collective_bytes` is 0
+    and `collectives` is empty. Exchange bytes reach the planner through
     `dispatch.graph.OpNode.exchange_bytes`, as in the reference.
+  * DTensor arguments (a program over a `DeviceMesh`, `launch.dryrun`)
+    are traced as one device's program, the reference's per-device HLO
+    module: the recorder lets DTensor run each op (`NotImplemented` at the
+    DTensor level) and records the local ops it issues on the device's
+    shards, once each, plus the `_c10d_functional` collectives its
+    redistributions issue. The ops DTensor's sharding propagation runs on
+    global-shape stand-ins (under its own fake mode, or under the trace's
+    inside `ShardingPropagator._propagate_tensor_meta_non_cached`) are not
+    the program's and are not recorded. Each
+    collective fills `collectives` with `hlo_analysis.CollectiveInfo`'s
+    fields (opcode, operand bytes, count 1, group size, group, op name)
+    and `collective_bytes` with their sum.
+  * Under `kernels.ops.kernel_ops` each flash forward and backward and
+    each decode attention is one op (`repro_torch::flash_fwd`,
+    `::flash_bwd`, `::decode`): its products count as dot FLOPs, 2, 5 and
+    2 (query rows x keys x hd) products a head as its plain version's,
+    and it moves the bytes of its inputs and outputs.
+  * `memory(prog)` gives one device's argument, output and temp bytes:
+    temp is the peak over the op sequence of the storages the program
+    allocates that are live (from their producer to their last reader),
+    neither arguments nor outputs, the measure of XLA's buffer
+    assignment.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from collections import Counter, defaultdict
 from typing import Callable
@@ -151,6 +175,22 @@ _UPDATE = {"index_put_": 2, "index_put": 2, "_unsafe_index_put": 2,
 #: inputs' shape (XLA fuses a concatenate into its loop fusion)
 _FUSE_CAT = {"cat"}
 
+#: `_c10d_functional` collective -> HLO opcode
+_COLLECTIVE = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+               "all_gather_into_tensor": "all-gather",
+               "all_gather_into_tensor_out": "all-gather",
+               "reduce_scatter_tensor": "reduce-scatter",
+               "all_to_all_single": "all-to-all",
+               "broadcast": "collective-permute",
+               "broadcast_": "collective-permute"}
+
+#: the attention kernels as one op each (`kernels.ops.kernel_ops`) ->
+#: their (query rows x keys x hd) products a head: S and P V forward; S,
+#: dV, dP, dQ, dK backward; S and P V a decode step, as their plain
+#: versions compute them
+_KERNEL_PRODUCTS = {"kernel.flash_fwd": 2, "kernel.flash_bwd": 5,
+                    "kernel.decode": 2}
+
 _INT_WIDTH = {"int8": 0, "int32": 1, "int64": 2}
 _UINT32_MASK = 0xFFFFFFFF
 
@@ -228,10 +268,14 @@ class _Recorder(TorchDispatchMode):
     core-aten decompositions to functional ops (views and in-place ops
     are kept whole, as the byte rules need them)."""
 
-    def __init__(self):
+    def __init__(self, fake_mode=None):
         super().__init__()
         from torch._decomp import core_aten_decompositions
+        from torch.distributed.tensor import DTensor
         self.decomp = core_aten_decompositions()
+        self.dtensor = DTensor
+        self.fake_mode = fake_mode
+        self.propagating = 0        # inside DTensor's sharding propagation
         self.values: dict[int, Value] = {}
         self.keep: list = []        # tensors seen, so no id is reused
         self.ops: list[Op] = []
@@ -247,6 +291,11 @@ class _Recorder(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if any(t is self.dtensor for t in types):
+            return NotImplemented         # DTensor issues the local ops
+        from torch._guards import active_fake_mode
+        if self.propagating or active_fake_mode() is not self.fake_mode:
+            return func(*args, **kwargs)  # DTensor's sharding propagation
         schema = func._schema
         if (func in self.decomp and not schema.is_mutable
                 and not func.is_view):
@@ -260,6 +309,10 @@ class _Recorder(TorchDispatchMode):
 
     def _record(self, func, args, kwargs, out):
         name = func.overloadpacket.__name__
+        if func.namespace == "_c10d_functional":
+            name = f"c10d.{name}"
+        elif func.namespace == "repro_torch":
+            name = f"kernel.{name}"
         flat_in, _ = tree_flatten((args, kwargs))
         ins = [self.value(t) for t in flat_in if isinstance(t, torch.Tensor)]
         vargs = tuple(self.value(a) if isinstance(a, torch.Tensor) else a
@@ -288,12 +341,23 @@ def _data_dependent_errors() -> tuple:
 
 def _fake_args(flat: list) -> tuple:
     """(mode, the tensors of `flat` as fake CPU tensors of `mode`): a new
-    fake mode, which also takes the real tensors `fn` closes over."""
+    fake mode, which also takes the real tensors `fn` closes over. A
+    DTensor becomes a DTensor of the same mesh, placements and shape over
+    a fake local shard."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import DTensor
     mode = FakeTensorMode(allow_non_fake_inputs=True)
     out = []
     for t in flat:
-        if isinstance(t, torch.Tensor):
+        if isinstance(t, DTensor):
+            loc = t._local_tensor
+            with mode:
+                fl = torch.empty_strided(loc.shape, loc.stride(),
+                                         dtype=loc.dtype, device="cpu")
+                t = DTensor.from_local(fl, t.device_mesh, t.placements,
+                                       run_check=False, shape=t.shape,
+                                       stride=t.stride())
+        elif isinstance(t, torch.Tensor):
             with mode:
                 t = torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
                                         device="cpu")
@@ -327,20 +391,53 @@ def trace_program(fn: Callable, *args, **kwargs) -> Program:
         return _record(fn, None, _real_args(flat), spec, "real")
 
 
+def _local(t):
+    """The tensor a device holds: a DTensor's local shard, else `t`."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
+@contextlib.contextmanager
+def _unrecorded_propagation(rec: _Recorder):
+    """While DTensor's sharding propagation derives an op's output shape
+    (on stand-in tensors of global shapes, under the active fake mode),
+    `rec` records nothing: those ops are not the program's."""
+    from torch.distributed.tensor._sharding_prop import ShardingPropagator
+    name = "_propagate_tensor_meta_non_cached"
+    orig = getattr(ShardingPropagator, name, None)
+    if orig is None:
+        yield
+        return
+
+    def wrapped(self, *args, **kwargs):
+        rec.propagating += 1
+        try:
+            return orig(self, *args, **kwargs)
+        finally:
+            rec.propagating -= 1
+    setattr(ShardingPropagator, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(ShardingPropagator, name, orig)
+
+
 def _record(fn, mode, flat, spec, tracing) -> Program:
-    rec = _Recorder()
-    inputs = [rec.value(t) for t in flat if isinstance(t, torch.Tensor)]
+    rec = _Recorder(mode)
+    inputs = [rec.value(_local(t)) for t in flat
+              if isinstance(t, torch.Tensor)]
     a, kw = tree_unflatten(flat, spec)
-    if mode is None:
-        with rec:
-            out = fn(*a, **kw)
-    else:
-        with mode, rec:
-            out = fn(*a, **kw)
+    with _unrecorded_propagation(rec):
+        if mode is None:
+            with rec:
+                out = fn(*a, **kw)
+        else:
+            with mode, rec:
+                out = fn(*a, **kw)
     outputs = []
     for t in tree_flatten(out)[0]:
         if isinstance(t, torch.Tensor):
-            v = rec.value(t)
+            v = rec.value(_local(t))
             v.is_output = True
             outputs.append(v)
     prog = Program(rec.ops, inputs, outputs, tracing)
@@ -367,6 +464,12 @@ def _kind(op: Op) -> tuple[str, str]:
     base = n[:-1] if n.endswith("_") and not n.startswith("_") else n
     if not op.outs:                  # a host read: .item(), .device
         return "host", n
+    if n == "c10d.wait_tensor":
+        return "view", "bitcast"
+    if n.startswith("c10d."):
+        return "collective", _COLLECTIVE.get(n[5:], n[5:])
+    if n in _KERNEL_PRODUCTS:
+        return "attention", "dot"
     if n in _VIEW_EXTRA or op.is_view:
         return "view", "bitcast"
     if n in _CONVERT:
@@ -668,6 +771,14 @@ def _count(op: Op, counts: dict) -> tuple[float, float]:
         counts[("mul", _mul_class(mul.ins, dtype_class(out.dtype)))] += pairs
         counts[("add", dtype_class(out.dtype))] += pairs
         return 2.0 * pairs, 2.0 * pairs
+    if k == "attention":
+        # q (B, Sq, H, hd) or, decoding, (B, H, hd); k (B, keys, KVH, hd)
+        q, kv = op.ins[0], op.ins[1]
+        pairs = float(q.numel * kv.shape[1]) * _KERNEL_PRODUCTS[op.name]
+        dt = dtype_class(q.dtype)
+        counts[("mul", dt)] += pairs
+        counts[("add", dt)] += pairs
+        return 2.0 * pairs, 2.0 * pairs
     if k == "matmul":
         pairs = _matmul_pairs(op)
         dt = dtype_class(out.dtype)
@@ -729,12 +840,96 @@ def _matmul_pairs(op: Op) -> float:
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass
+class CollectiveInfo:
+    """One collective of the program, with `hlo_analysis.CollectiveInfo`'s
+    fields."""
+    opcode: str
+    bytes: int            # operand bytes
+    count: int
+    group_size: int
+    replica_groups: str
+    op_name: str
+
+
+@functools.lru_cache(maxsize=None)
+def _group_size(group_name) -> int:
+    from torch.distributed.distributed_c10d import _resolve_process_group
+    try:
+        return _resolve_process_group(group_name).size()
+    except (RuntimeError, ValueError, KeyError):
+        return 0
+
+
+def collectives(prog: Program) -> list[CollectiveInfo]:
+    """The program's collectives in execution order."""
+    out = []
+    for op in prog.ops:
+        if op.kind != "collective":
+            continue
+        group = op.args[-1] if op.args and isinstance(op.args[-1], str) \
+            else ""
+        out.append(CollectiveInfo(op.opcode, int(op.ins[0].nbytes), 1,
+                                  _group_size(group), str(group),
+                                  f"{op.opcode}.{op.index}"))
+    return out
+
+
+def memory(prog: Program) -> dict[str, int]:
+    """One device's bytes: `argument_size_in_bytes` (the argument
+    storages), `output_size_in_bytes` (storages holding a returned value
+    that are not arguments) and `temp_size_in_bytes`, the peak over the op
+    sequence of the other storages the program allocates while live (from
+    the op that allocates one to the last op that reads any view of it).
+    Views and in-place ops share their input's storage; a free op (a
+    view) allocates nothing."""
+    store: dict[int, Value] = {}          # id(Value) -> its storage's root
+
+    def root(v: Value) -> Value:
+        return store.get(id(v), v)
+
+    for op in prog.ops:
+        shares = op.kind == "view" or op.kind == "inplace" or (
+            op.kind == "update" and op.name.endswith("_"))
+        for v in op.outs:
+            if shares and op.ins:
+                store[id(v)] = root(op.ins[0])
+    args = {id(root(v)): root(v) for v in prog.inputs}
+    outs = {id(root(v)): root(v) for v in prog.outputs}
+    last: dict[int, int] = {}
+    first: dict[int, int] = {}
+    size: dict[int, int] = {}
+    for op in prog.ops:
+        for v in op.ins:
+            last[id(root(v))] = op.index
+        for v in op.outs:
+            r = root(v)
+            if id(r) not in first and r.producer is op:
+                first[id(r)] = op.index
+                size[id(r)] = r.nbytes
+            last[id(r)] = max(last.get(id(r), op.index), op.index)
+    delta = defaultdict(int)
+    for k, i in first.items():
+        if k in args or k in outs:
+            continue
+        delta[i] += size[k]
+        delta[last[k] + 1] -= size[k]
+    live = peak = 0
+    for i in sorted(delta):
+        live += delta[i]
+        peak = max(peak, live)
+    return {"argument_size_in_bytes": sum(v.nbytes for v in args.values()),
+            "output_size_in_bytes": sum(v.nbytes for k, v in outs.items()
+                                        if k not in args),
+            "temp_size_in_bytes": int(peak)}
+
+
+@dataclasses.dataclass
 class ProgramAnalysis:
     flops: float
     dot_flops: float
     hbm_bytes: float
     collective_bytes: float
-    collectives: list            # none on one card
+    collectives: list            # CollectiveInfo, in program order
     op_census: Counter           # HLO-style opcode -> count
     dot_details: list            # per product: flops, type, count, op_name
     largest_tensors: list        # (bytes, op name, type), 20 largest
@@ -784,12 +979,13 @@ def analyze(prog: Program) -> ProgramAnalysis:
             if v.nbytes:
                 largest.append((v.nbytes, f"{op.opcode}.{op.index}",
                                 _type_str(v)[:60]))
+    colls = collectives(prog)
     return ProgramAnalysis(
         flops=sum(u.flops for u in units),
         dot_flops=sum(u.dot_flops for u in units),
         hbm_bytes=sum(u.hbm_bytes for u in units),
-        collective_bytes=0.0,
-        collectives=[],
+        collective_bytes=float(sum(c.bytes for c in colls)),
+        collectives=colls,
         op_census=census,
         dot_details=sorted(dots, key=lambda d: -d["flops"])[:50],
         largest_tensors=sorted(largest, key=lambda t: -t[0])[:20],

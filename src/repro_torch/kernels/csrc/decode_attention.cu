@@ -29,7 +29,9 @@
 // acc = 0). A second small kernel merges the S partial states of each
 // (b, head) in split order, weighting by exp2(m_s - max m) * l_s, so an
 // empty state adds nothing and the result has the same bits on every
-// launch. Output is in q's dtype.
+// launch. Output is in q's dtype; on request the merge also writes each
+// row's f32 log-sum-exp, which a caller merging several such calls (a
+// cache sharded along its sequence) weighs their outputs by.
 // Precondition: 1 <= lengths[b] <= W (clamped to [0, W]; 0 gives zeros).
 
 #include <cuda_bf16.h>
@@ -291,11 +293,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// out[b, h] from the S partial states of (b, h), in split order.
+// out[b, h] from the S partial states of (b, h), in split order; where lse
+// is given, also the row's natural log-sum-exp of its scaled scores,
+// (mx + log2(den)) * ln 2 in the base-2 units the split kernel keeps, or
+// kEmptyM for a row with no valid slot.
 template <typename T>
 __global__ void merge_kernel(const float* __restrict__ ws_ml,
                              const float* __restrict__ ws_acc,
-                             T* __restrict__ out, int H, int S, int hd) {
+                             T* __restrict__ out, float* __restrict__ lse,
+                             int H, int S, int hd) {
   const int h = blockIdx.x, b = blockIdx.y;
   const size_t base = ((size_t)b * H + h) * S;
   float mx = kEmptyM;
@@ -304,6 +310,9 @@ __global__ void merge_kernel(const float* __restrict__ ws_ml,
   for (int s = 0; s < S; ++s)
     den += ws_ml[2 * (base + s) + 1] * exp2f(ws_ml[2 * (base + s)] - mx);
   const float inv = 1.f / fmaxf(den, 1e-30f);
+  if (lse != nullptr && threadIdx.x == 0)
+    lse[(size_t)b * H + h] =
+        den > 0.f ? (mx + log2f(den)) * 0.6931471805599453f : kEmptyM;
   for (int d = threadIdx.x; d < hd; d += blockDim.x) {
     float a = 0.f;
     for (int s = 0; s < S; ++s)
@@ -376,12 +385,13 @@ extern "C" const char* error_string(int code) {
 }
 
 // q: (B, KVH*G, hd); k, v: (B, W, KVH, hd), 16-byte aligned; lengths: int32
-// (B,); out like q. workspace: B * KVH * G * splits * (hd + 2) floats.
+// (B,); out like q; lse: f32 (B, KVH*G), or null for none.
+// workspace: B * KVH * G * splits * (hd + 2) floats.
 // hd a multiple of 8, at most 256; G at most 16; 1 <= splits <= W.
 // All contiguous, on the device. is_bf16: 1 for bf16, 0 for f32.
 // Two launches on the stream: the split kernel, then the merge.
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* lengths, void* out,
+                                const void* lengths, void* out, void* lse,
                                 void* workspace, int B, int KVH, int G, int W,
                                 int hd, int splits, int is_bf16,
                                 void* stream) {
@@ -408,11 +418,12 @@ extern "C" int decode_attention(const void* q, const void* k, const void* v,
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 merge_grid(H, B);
   const int threads = ((hd + 31) / 32) * 32;
+  float* lse_f = static_cast<float*>(lse);
   if (is_bf16)
     merge_kernel<__nv_bfloat16><<<merge_grid, threads, 0, st>>>(
-        ws_ml, ws_acc, static_cast<__nv_bfloat16*>(out), H, splits, hd);
+        ws_ml, ws_acc, static_cast<__nv_bfloat16*>(out), lse_f, H, splits, hd);
   else
     merge_kernel<float><<<merge_grid, threads, 0, st>>>(
-        ws_ml, ws_acc, static_cast<float*>(out), H, splits, hd);
+        ws_ml, ws_acc, static_cast<float*>(out), lse_f, H, splits, hd);
   return static_cast<int>(cudaGetLastError());
 }

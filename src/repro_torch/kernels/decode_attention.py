@@ -24,7 +24,7 @@ from ._build import CudaKernel, check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("decode_attention", "decode_attention",
-                    [_P] * 6 + [_I] * 7 + [_P])
+                    [_P] * 7 + [_I] * 7 + [_P])
 MAX_GROUP = 16     # query heads per KV head
 MAX_HEAD_DIM = 256
 SM_COUNT = 132     # NVIDIA H100 SXM
@@ -71,11 +71,13 @@ def workspace(n: int, device: torch.device, stream: int) -> torch.Tensor:
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, return_lse: bool = False):
     """Launch the kernel. q: (B,H,hd); k, v: (B,W,KVH,hd), 16-byte aligned;
     lengths: int32 (B,) with 1 <= lengths[b] <= W (a documented
     precondition, not checked: that would cost a host sync). All on one
-    CUDA device, contiguous; f32 or bf16. Returns (B,H,hd) in q's dtype."""
+    CUDA device, contiguous; f32 or bf16. Returns (B,H,hd) in q's dtype,
+    and with `return_lse` also each row's f32 log-sum-exp of its scaled
+    scores, (B,H), natural log (the output's bits do not change)."""
     tensors = (q, k, v, lengths)
     check_cuda("decode_attention", *tensors)
     b, h, hd = q.shape
@@ -95,8 +97,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = workspace(b * h * splits * (hd + 2), q.device, stream)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                  lengths.data_ptr(), out.data_ptr(),
+                  None if lse is None else lse.data_ptr(), ws.data_ptr(),
                   b, kvh, h // kvh, w, hd, splits,
                   int(q.dtype == torch.bfloat16), stream)
-    return out
+    return (out, lse) if return_lse else out

@@ -22,14 +22,28 @@ runs as an autograd Function whose forward also keeps each row's
 log-sum-exp and whose backward is the `flash_attention_bwd` kernel (the
 plain `ref.flash_attention_bwd` on the CPU). `decode_attention` has no
 gradient and raises where one is asked of it.
+
+On a mesh (DTensor arguments) both attention wrappers run through
+`local_map`: the kernel (or its plain version, by the local tensors'
+device) runs on each device's shard. Flash attention takes q's
+placements for all three (batch and heads may be sharded, never the
+sequence or head dim; the model repeats K/V to all heads before it
+shards heads, `layers.heads_for_kernel`). Decode attention takes the
+cache's: where the cache's sequence is sharded (flash-decoding), each
+device attends over its own slots and the partial results merge by
+the log-sum-exp that the kernel returns beside its output (the plain
+version's on the CPU).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import numbers
 
 import torch
 
+from ..dist import is_dtensor, local_extent, replicate_uneven
 from . import decode_attention as _da
 from . import flash_attention as _fa
 from . import flash_attention_bwd as _fab
@@ -42,8 +56,14 @@ from . import scan_block as _scan
 from . import trns as _trns
 from . import ts as _ts
 from . import va as _va
+from ._build import LaunchCounter
 
 DTYPES = (torch.float32, torch.bfloat16)
+
+#: calls of the attention wrappers on DTensors, each running its kernel
+#: (or plain version) on the local shards through `local_map`: "flash"
+#: and "decode"
+SHARDED = LaunchCounter()
 
 
 def _check_dtypes(name, *tensors):
@@ -69,12 +89,24 @@ def decode_attention(q, k, v, lengths):
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not "
                          f"match cache {tuple(k.shape)}")
+    if is_dtensor(k):
+        return _sharded_decode(q, k, v, lengths)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
     if lengths.dim() == 0:
         lengths = lengths.expand(b).contiguous()
+    return _decode_forward(q, k, v, lengths)
+
+
+def _decode_forward(q, k, v, lengths, return_lse=False):
+    """Decode attention by device: the plain version for CPU tensors (one
+    op under `kernel_ops`), else the kernel (which launches or raises).
+    lengths: int32 (B,)."""
     if q.device.type == "cpu":
-        return ref.decode_attention(q, k, v, lengths)
-    return _da.decode_attention(q, k, v, lengths)
+        if _AS_OPS[0]:
+            out, lse = torch.ops.repro_torch.decode(q, k, v, lengths)
+            return (out, lse) if return_lse else out
+        return ref.decode_attention(q, k, v, lengths, return_lse)
+    return _da.decode_attention(q, k, v, lengths, return_lse)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
@@ -96,6 +128,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
     if q_offset < 0:
         raise ValueError(f"flash_attention: q_offset must be >= 0, got "
                          f"{q_offset}")
+    if is_dtensor(q):
+        return _sharded_flash(q, k, v, causal, window, q_offset)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         _fab.check_supported(q.shape[1], k.shape[1], q.shape[3], window,
                              q_offset)
@@ -104,21 +138,93 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
 
 
 def _flash_forward(q, k, v, causal, window, q_offset, return_lse=False):
-    """The forward by device: the plain version for CPU tensors, else the
-    kernel (which launches or raises)."""
+    """The forward by device: the plain version for CPU tensors (one op
+    under `kernel_ops`), else the kernel (which launches or raises)."""
     if q.device.type == "cpu":
+        if _AS_OPS[0]:
+            out, lse = torch.ops.repro_torch.flash_fwd(q, k, v, causal,
+                                                       window, q_offset)
+            return (out, lse) if return_lse else out
         return ref.flash_attention(q, k, v, causal, window, q_offset,
                                    return_lse)
     return _fa.flash_attention(q, k, v, causal, window, q_offset, return_lse)
 
 
 def _flash_backward(q, k, v, out, lse, dout, causal, window):
-    """The backward by device: `ref.flash_attention_bwd` for CPU tensors,
-    else the backward kernel."""
+    """The backward by device: `ref.flash_attention_bwd` for CPU tensors
+    (one op under `kernel_ops`), else the backward kernel."""
     if q.device.type == "cpu":
+        if _AS_OPS[0]:
+            return torch.ops.repro_torch.flash_bwd(q, k, v, out, lse, dout,
+                                                   causal, window)
         return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal,
                                        window)
     return _fab.flash_attention_bwd(q, k, v, out, lse, dout, causal, window)
+
+
+_AS_OPS = [False]
+
+
+@contextlib.contextmanager
+def kernel_ops():
+    """A context in which each flash forward and backward and each decode
+    attention on CPU tensors is one custom op, `repro_torch::flash_fwd`,
+    `::flash_bwd` and `::decode`, as the card runs one kernel: its values
+    are the plain version's, on fake tensors it gives its outputs' shapes
+    alone. `core.census` counts such an op as the kernel's products and
+    the bytes of its inputs and outputs, without the plain version's
+    score-sized intermediates, which no kernel holds. `launch.dryrun`
+    traces under it."""
+    _register_kernel_ops()
+    prev = _AS_OPS[0]
+    _AS_OPS[0] = True
+    try:
+        yield
+    finally:
+        _AS_OPS[0] = prev
+
+
+@functools.cache
+def _register_kernel_ops() -> None:
+    # schemas spelled out: this module's annotations are strings
+    @torch.library.custom_op(
+        "repro_torch::flash_fwd", mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+               "int q_offset) -> (Tensor, Tensor)")
+    def flash_fwd(q, k, v, causal, window, q_offset):
+        return ref.flash_attention(q, k, v, causal, window, q_offset, True)
+
+    @flash_fwd.register_fake
+    def _(q, k, v, causal, window, q_offset):
+        b, sq, h, _ = q.shape
+        acc = torch.promote_types(q.dtype, torch.float32)
+        return q.new_empty(q.shape), q.new_empty((b, h, sq), dtype=acc)
+
+    @torch.library.custom_op(
+        "repro_torch::flash_bwd", mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, Tensor out, Tensor lse, "
+               "Tensor dout, bool causal, int window) -> "
+               "(Tensor, Tensor, Tensor)")
+    def flash_bwd(q, k, v, out, lse, dout, causal, window):
+        return ref.flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                       window)
+
+    @flash_bwd.register_fake
+    def _(q, k, v, out, lse, dout, causal, window):
+        return q.new_empty(q.shape), k.new_empty(k.shape), \
+            v.new_empty(v.shape)
+
+    @torch.library.custom_op(
+        "repro_torch::decode", mutates_args=(),
+        schema="(Tensor q, Tensor k, Tensor v, Tensor lengths) -> "
+               "(Tensor, Tensor)")
+    def decode(q, k, v, lengths):
+        return ref.decode_attention(q, k, v, lengths, True)
+
+    @decode.register_fake
+    def _(q, k, v, lengths):
+        acc = torch.promote_types(q.dtype, torch.float32)
+        return q.new_empty(q.shape), q.new_empty(q.shape[:2], dtype=acc)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -140,6 +246,91 @@ class _FlashAttention(torch.autograd.Function):
         grads = _flash_backward(q, k, v, out, lse, dout, ctx.causal,
                                 ctx.window)
         return (*grads, None, None)
+
+
+def _replicated(x, mesh):
+    """`x` as a DTensor on `mesh`: itself if it is one, else replicated."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if is_dtensor(x):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _sharded_flash(q, k, v, causal, window, q_offset):
+    """`flash_attention` of DTensors: the wrapper on each device's shard
+    (`local_map` on q's placements), with its gradient through the same
+    autograd Function."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    plc = replicate_uneven(q.placements, q.shape, mesh)
+    if any(p.is_shard() and p.dim in (1, 3) for p in plc) or \
+            any(p.is_partial() for p in plc):
+        raise ValueError(f"flash_attention: q's placements {plc} shard the "
+                         f"sequence or head dim; shard batch or heads only")
+    k, v = _replicated(k, mesh), _replicated(v, mesh)
+    if k.shape[2] != q.shape[2] and any(
+            p == Shard(2) and mesh.size(i) > 1 for i, p in enumerate(plc)):
+        raise ValueError("flash_attention: heads are sharded, so k and v "
+                         "need all H heads (repeat K/V before sharding)")
+    SHARDED.count("flash")
+    fn = local_map(lambda q, k, v: flash_attention(q, k, v, causal, window,
+                                                   q_offset),
+                   out_placements=list(plc), in_placements=(plc, plc, plc),
+                   redistribute_inputs=True, device_mesh=mesh)
+    return fn(q, k, v)
+
+
+def _sharded_decode(q, k, v, lengths):
+    """`decode_attention` of DTensor caches (module docstring): the kernel
+    on each device's rows, heads and sequence shard. Where the sequence
+    is sharded, each shard's output is weighted by exp(its log-sum-exp -
+    the max over shards) and the weighted outputs summed over the shards
+    and divided by the summed weights; an empty shard weighs 0."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = k.device_mesh
+    kp = replicate_uneven(k.placements, k.shape, mesh)
+    # q (B,H,hd): the cache's batch and head shards, replicated over its
+    # sequence shards; lengths (B,) the batch shards
+    qp = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(2)
+               else Replicate() for p in kp)
+    lp = tuple(Shard(0) if p == Shard(0) else Replicate() for p in kp)
+    q, v = _replicated(q, mesh), _replicated(v, mesh)
+    lengths = _replicated(torch.as_tensor(lengths, dtype=torch.int32,
+                                          device=q.device), mesh)
+    if lengths.dim() == 0:
+        lengths = lengths.expand(q.shape[0])
+    seq_dims = [i for i, p in enumerate(kp)
+                if p == Shard(1) and mesh.size(i) > 1]
+    SHARDED.count("decode")
+    if not seq_dims:
+        fn = local_map(decode_attention, out_placements=list(qp),
+                       in_placements=(qp, kp, kp, lp),
+                       redistribute_inputs=True, device_mesh=mesh)
+        return fn(q, k, v, lengths)
+    shape, offset = local_extent(k.shape, mesh, kp)
+    lo, n_loc = offset[1], shape[1]
+
+    def part(q, k, v, lengths):
+        n = torch.clamp(lengths - lo, 0, n_loc)
+        o, lse = _decode_forward(q, k, v, torch.clamp(n, min=1), True)
+        lse = torch.where(n[:, None] > 0, lse, torch.full_like(lse, -1e30))
+        return o[None], lse[None]
+
+    # each shard's (o, lse) as one slice of a new leading dim, sharded
+    # over the cache's sequence mesh dims
+    op = tuple(Shard(0) if i in seq_dims else Shard(p.dim + 1)
+               if p.is_shard() else p for i, p in enumerate(qp))
+    o, lse = local_map(part, out_placements=(list(op), list(op)),
+                       in_placements=(qp, kp, kp, lp),
+                       redistribute_inputs=True, device_mesh=mesh)(
+                           q, k, v, lengths)
+    m = lse.amax(0)
+    w = torch.exp(lse - m)
+    out = (o.float() * w[..., None]).sum(0) / w.sum(0)[..., None]
+    return out.to(q.dtype).redistribute(mesh, qp)
 
 
 def _check_vector(name, dtypes, *tensors):

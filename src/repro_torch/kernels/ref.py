@@ -27,10 +27,11 @@ def _wide(x):
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
-def decode_attention(q, k, v, lengths):
+def decode_attention(q, k, v, lengths, return_lse: bool = False):
     """q: (B,H,hd); k,v: (B,W,KVH,hd); lengths: int or int32 (B,) valid
     cache slots per row (slots [0, lengths[b]) attend). Returns (B,H,hd),
-    GQA-aware, f32 softmax."""
+    GQA-aware, f32 softmax; with `return_lse` also each row's log-sum-exp
+    of its scaled scores, (B,H) in the softmax type."""
     b, h, hd = q.shape
     w, kvh = k.shape[1], k.shape[2]
     g = h // kvh
@@ -41,7 +42,10 @@ def decode_attention(q, k, v, lengths):
     s = s.masked_fill(~mask[:, None, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkd->bkgd", p, _wide(v))
-    return o.reshape(b, h, hd).to(q.dtype)
+    o = o.reshape(b, h, hd).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s, dim=-1).reshape(b, h)
+    return o
 
 
 def _flash_scores(q, k, causal, window, q_offset):

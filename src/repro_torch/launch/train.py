@@ -10,9 +10,14 @@ Attention runs the flash kernel forward and backward on the card.
 
 Every `--log-every`-th step (and the first) prints as a JSON line, then a
 summary line. On the card
-it also prints the kernels' launch counts of the run (by route) and the
-peak device memory as one JSON line. `--mesh` (sharding over several
-devices) comes with `launch.mesh` (ROADMAP Queue 1, item 18c).
+it also prints the kernels' launch counts of the run (by route), the
+attention calls that ran on DTensor shards (`ops.SHARDED`) and the peak
+device memory as one JSON line. `--mesh` trains on
+`launch.mesh.make_smoke_mesh()` with `TRAIN_POLICY`: a (1, n) mesh over
+the ranks of the running process group, or over a one-process group it
+starts (NCCL on the card, gloo with `--device cpu`) and ends on exit.
+Parameters, moments and batches are then DTensors and the flash kernels
+run on each device's shard.
 """
 
 from __future__ import annotations
@@ -29,7 +34,9 @@ from ..configs import get_arch
 from ..configs.shapes import ShapeConfig
 from ..device import resolve_device
 from ..kernels import ops
+from ..models import TRAIN_POLICY, Shardings
 from ..train import DataConfig, HParams, LoopConfig, TrainLoop
+from .mesh import make_smoke_mesh
 
 
 def main(argv=None) -> int:
@@ -49,17 +56,26 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10,
                     help="log the metrics of every n-th step (and step 1)")
     ap.add_argument("--mesh", action="store_true",
-                    help="shard over all local devices (not ported yet)")
+                    help="shard over the ranks of the process group "
+                         "(a (1, n) mesh; one rank if there is no group)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh comes with launch.mesh (ROADMAP Queue 1, item 18c); "
-            "the port trains on one device")
 
     dev = resolve_device(args.device)
+    started = args.mesh and not torch.distributed.is_initialized()
+    try:
+        return _run(args, dev)
+    finally:
+        if started and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _run(args, dev) -> int:
+    shd = None
+    if args.mesh:
+        shd = Shardings(make_smoke_mesh(device=dev.type), TRAIN_POLICY)
     cfg = get_arch(args.arch, reduced=args.reduced)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     hp = HParams(lr=args.lr, warmup_steps=args.warmup,
@@ -67,14 +83,15 @@ def main(argv=None) -> int:
     loop_cfg = LoopConfig(total_steps=args.steps,
                           ckpt_every=args.ckpt_every,
                           ckpt_dir=args.ckpt_dir, log_every=args.log_every)
-    loop = TrainLoop(cfg, shape, hp, loop_cfg, DataConfig(), device=dev)
+    loop = TrainLoop(cfg, shape, hp, loop_cfg, DataConfig(), device=dev,
+                     shd=shd)
 
     state = loop.resume_or_init(args.seed)
     start = state.step
     if start:
         print(f"resumed from step {start}")
     kernels = ops.kernels()
-    for k in kernels.values():
+    for k in (*kernels.values(), ops.SHARDED):
         k.reset()
     t0 = time.perf_counter()
     state = loop.run(state)
@@ -90,6 +107,7 @@ def main(argv=None) -> int:
             "kernel_launches": {n: {"launches": k.launches,
                                     "routes": dict(k.route_launches)}
                                 for n, k in kernels.items() if k.launches},
+            "sharded_calls": dict(ops.SHARDED.route_launches),
             "peak_bytes": torch.cuda.max_memory_allocated(dev)}))
     return 0
 

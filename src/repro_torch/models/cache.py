@@ -10,7 +10,11 @@ one count of tokens written, so no positions array is stored:
 
 Unlike the functional reference, `write_decode` and `write_prefill` update
 the cache tensors IN PLACE (and return the same dict), so a decode step
-never copies the cache.
+never copies the cache. On a mesh (DTensor caches) each device writes
+its own rows and, where the sequence is sharded (flash-decoding), only
+the slots of its own sequence shard, through `local_map`: DTensor
+refuses in-place updates that would change a placement, and each write
+is local by construction.
 """
 
 from __future__ import annotations
@@ -18,10 +22,11 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..dist import local_extent
 from .config import ModelConfig, torch_dtype
 from .mamba import mamba_state_defs
 from .rwkv import rwkv_state_defs
-from .sharding import ParamDef, stack_defs, tree_map
+from .sharding import ParamDef, is_dtensor, stack_defs, tree_map
 
 
 def kv_defs(cfg: ModelConfig, batch: int, width: int, name: str) -> dict:
@@ -83,21 +88,29 @@ def state_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch.promote_types(torch_dtype(cfg.dtype), torch.float32)
 
 
+def leaf_dtype(cfg: ModelConfig, d: ParamDef) -> torch.dtype:
+    """The reference's dtype rule for a cache leaf: the recurrent states
+    in `state_dtype`, every other leaf in the model's dtype (unless the
+    def names one)."""
+    if d.dtype:
+        return torch_dtype(d.dtype)
+    if "wkv" in d.name or d.name.endswith(".h"):
+        return state_dtype(cfg)
+    return torch_dtype(cfg.dtype)
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               device=None) -> dict:
-    """Zero-initialized cache on `device` (None: the card). The reference's
-    dtype rule: the recurrent states in `state_dtype`, every other leaf in
-    the model's dtype."""
+               device=None, shd=None) -> dict:
+    """Zero-initialized cache on `device` (None: the card), each leaf in
+    `leaf_dtype`. With `shd` on a mesh each leaf is a DTensor of its
+    spec."""
     dev = resolve_device(device)
 
     def mk(d: ParamDef):
-        if d.dtype:
-            dt = torch_dtype(d.dtype)
-        elif "wkv" in d.name or d.name.endswith(".h"):
-            dt = state_dtype(cfg)
-        else:
-            dt = torch_dtype(cfg.dtype)
-        return torch.zeros(d.shape, dtype=dt, device=dev)
+        t = torch.zeros(d.shape, dtype=leaf_dtype(cfg, d), device=dev)
+        if shd is not None and shd.mesh is not None:
+            t = shd.place(t, shd.spec(d.shape, d.kinds, d.name))
+        return t
     return tree_map(mk, cache_defs(cfg, batch, max_len))
 
 
@@ -118,6 +131,8 @@ def write_decode(kv: dict, k_new, v_new, index, width: int) -> dict:
     """Insert one token's k/v at slot index % width, in place.
     k_new: (B,1,KVH,hd). index: scalar (synchronized batch) or (B,)
     per-row positions."""
+    if is_dtensor(kv["k"]):
+        return _write_sharded(kv, k_new, v_new, index, width)
     slot = torch.remainder(
         torch.as_tensor(index, device=kv["k"].device).long(), width)
     if slot.dim() == 0:     # index_copy_ reads the slot on the device: no sync
@@ -134,11 +149,75 @@ def write_prefill(kv: dict, k_full, v_full) -> dict:
     """Write a prefill's k/v into slots [0, s), in place. If the prefill
     is longer than the (ring) cache, keep the last `width` tokens at their
     p % width slots."""
-    s, width = k_full.shape[1], kv["k"].shape[1]
+    if is_dtensor(kv["k"]):
+        return _write_sharded(kv, k_full, v_full, None, kv["k"].shape[1])
+    k_full, v_full = _last_window(k_full, v_full, kv["k"].shape[1])
+    s = k_full.shape[1]
+    kv["k"][:, :s] = k_full.to(kv["k"].dtype)
+    kv["v"][:, :s] = v_full.to(kv["v"].dtype)
+    return kv
+
+
+def _last_window(k_full, v_full, width: int):
+    """A prefill's k/v as a cache of `width` slots holds them: all of
+    them, or past the width the last `width` tokens rolled to their
+    p % width slots."""
+    s = k_full.shape[1]
     if s > width:
         k_full = torch.roll(k_full[:, s - width:], s % width, dims=1)
         v_full = torch.roll(v_full[:, s - width:], s % width, dims=1)
-        s = width
-    kv["k"][:, :s] = k_full.to(kv["k"].dtype)
-    kv["v"][:, :s] = v_full.to(kv["v"].dtype)
+    return k_full, v_full
+
+
+def _write_sharded(kv: dict, k_new, v_new, index, width: int) -> dict:
+    """`write_prefill` (index None: slots [0, s), past the width its last
+    window) or `write_decode` (one token per row at index % width) into
+    DTensor caches: each device writes its rows' slots that fall in its
+    own sequence shard, through `local_map` on the cache's own placements
+    (the new rows come replicated over the sequence shards)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    cache = kv["k"]
+    mesh, plc = cache.device_mesh, tuple(cache.placements)
+    new_plc = tuple(Replicate() if p == Shard(1) else p for p in plc)
+    shape, offset = local_extent(
+        cache.shape, mesh, plc)
+    lo, n_loc = offset[1], shape[1]
+    if index is not None:
+        slot = torch.remainder(torch.as_tensor(index, device=cache.device)
+                               .long(), width).reshape(-1)
+        slot = slot.expand(cache.shape[0]).contiguous()
+        if not is_dtensor(slot):
+            from torch.distributed.tensor import DTensor
+            slot = DTensor.from_local(slot, mesh, [Replicate()] * mesh.ndim,
+                                      run_check=False)
+        slot_plc = tuple(p if p == Shard(0) else Replicate() for p in plc)
+    else:
+        slot, slot_plc = None, None
+
+    def write(k_loc, v_loc, k_src, v_src, slot_loc):
+        if slot_loc is None:
+            k_src, v_src = _last_window(k_src, v_src, width)
+        for dst, src in ((k_loc, k_src), (v_loc, v_src)):
+            src = src.to(dst.dtype)
+            if slot_loc is None:                      # prefill
+                n = max(min(src.shape[1] - lo, n_loc), 0)
+                if n:
+                    dst[:, :n] = src[:, lo:lo + n]
+                continue
+            rows = torch.arange(dst.shape[0], device=dst.device)
+            mine = (slot_loc >= lo) & (slot_loc < lo + n_loc)
+            at = torch.clamp(slot_loc - lo, 0, n_loc - 1)
+            dst[rows, at] = torch.where(mine[:, None, None], src[:, 0],
+                                        dst[rows, at])
+        return k_loc
+
+    args = (kv["k"], kv["v"], k_new, v_new)
+    in_plc = (plc, plc, new_plc, new_plc)
+    if slot is not None:
+        args, in_plc = args + (slot,), in_plc + (slot_plc,)
+    else:
+        args, in_plc = args + (None,), in_plc + (None,)
+    local_map(write, out_placements=list(plc), in_placements=in_plc,
+              redistribute_inputs=True, device_mesh=mesh)(*args)
     return kv

@@ -20,10 +20,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..dist import replicate_uneven
 from ..kernels import ops
 from ..kernels._build import LaunchCounter
 from .config import ModelConfig
-from .sharding import ParamDef
+from .sharding import NO_SHARDING, ParamDef, Shardings, is_dtensor
 
 
 # --------------------------------------------------------------------- #
@@ -112,12 +113,60 @@ def attn_defs(cfg: ModelConfig, name: str) -> dict:
 
 
 def _proj(x, w):
-    """x (B,S,d) @ w (d, heads, hd) -> (B,S,heads,hd), one matmul."""
+    """x (B,S,d) @ w (d, heads, hd) -> (B,S,heads,hd), one matmul. On a
+    mesh, a product sharded on its last dim over more devices than divide
+    the heads is gathered on that mesh dim before the split into heads
+    (DTensor cannot unflatten an uneven shard)."""
     d, nh, hd = w.shape
-    return (x @ w.to(x.dtype).reshape(d, nh * hd)).unflatten(-1, (nh, hd))
+    y = x @ _grad_as_input(w.to(x.dtype).reshape(d, nh * hd))
+    return _grad_as_input(_heads_whole(y, nh).unflatten(-1, (nh, hd)))
 
 
-def _qkv(x, p, cfg: ModelConfig, *, rope_sin=None, rope_cos=None):
+class _GradAsInput(torch.autograd.Function):
+    """Identity on a DTensor whose gradient is redistributed to the
+    input's placements: a merged weight view's gradient may come back
+    sharded where the heads cannot split evenly, an activation's sharded
+    over the sequence where a product's backward cannot take it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mesh, ctx.plc = x.device_mesh, tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) != ctx.plc:
+            g = g.redistribute(ctx.mesh, ctx.plc)
+        return g
+
+
+def _grad_as_input(w):
+    if is_dtensor(w) and torch.is_grad_enabled() and w.requires_grad:
+        return _GradAsInput.apply(w)
+    return w
+
+
+def _heads_whole(x, heads: int | None = None):
+    """`x` with its heads dim (the last dim holding `heads` heads, or dim
+    -2) gathered on every mesh dim whose size does not divide the heads:
+    DTensor cannot split or merge an uneven shard. A plain tensor as it
+    is."""
+    if not is_dtensor(x):
+        return x
+    dim = x.dim() - (1 if heads is not None else 2)
+    shape = list(x.shape)
+    shape[dim] = heads if heads is not None else shape[dim]
+    plc = replicate_uneven(x.placements, shape, x.device_mesh, (dim,))
+    if plc != tuple(x.placements):
+        x = x.redistribute(x.device_mesh, plc)
+    return x
+
+
+def _qkv(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING, *,
+         rope_sin=None, rope_cos=None, heads_tp=True):
+    """q, k, v of x. heads_tp: q heads over tp (train/prefill); a decode
+    step keeps them replicated (flash-decoding: the cache's sequence is
+    sharded instead)."""
     q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
@@ -126,7 +175,26 @@ def _qkv(x, p, cfg: ModelConfig, *, rope_sin=None, rope_cos=None):
     if cfg.rope != "none" and rope_sin is not None:
         q = apply_rope(q, rope_sin, rope_cos)
         k = apply_rope(k, rope_sin, rope_cos)
+    q = shd.act(q, "batch", None, "tp" if heads_tp else None, None)
+    k = shd.act(k, "batch", None, None, None)
+    v = shd.act(v, "batch", None, None, None)
     return q, k, v
+
+
+def heads_for_kernel(q, k, v, shd: Shardings = NO_SHARDING):
+    """q, k, v laid out for the attention kernel on a mesh: where the tp
+    axes span more than one device, K/V are first repeated to all H heads
+    (the reference's order: GQA groups do not split over tp), then all
+    three are sharded on heads over tp, so each device's q heads meet
+    their own K/V heads. A no-op without a mesh or at tp size 1."""
+    if shd.mesh is None or shd.tp_size() == 1:
+        return q, k, v
+    h, kvh = q.shape[2], k.shape[2]
+    if kvh != h:
+        k = torch.repeat_interleave(k, h // kvh, dim=2)
+        v = torch.repeat_interleave(v, h // kvh, dim=2)
+    kinds = ("batch", None, "tp", None)
+    return shd.act(q, *kinds), shd.act(k, *kinds), shd.act(v, *kinds)
 
 
 def flash_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
@@ -184,7 +252,8 @@ def flash_attention(q, k, v, cfg: ModelConfig, *, causal: bool = True,
     return torch.cat(chunks, dim=1)
 
 
-def cached_attention(q, k_cache, v_cache, index, cfg: ModelConfig):
+def cached_attention(q, k_cache, v_cache, index, cfg: ModelConfig,
+                     shd: Shardings = NO_SHARDING):
     """Decode-step attention against a (possibly ring) KV cache.
 
     q: (B,1,H,hd); caches: (B,W,KVH,hd); index: current position, scalar
@@ -204,9 +273,13 @@ def cached_attention(q, k_cache, v_cache, index, cfg: ModelConfig):
     return o.reshape(b, 1, h, hd)
 
 
-def attn_out(o, p, x_dtype):
+def attn_out(o, p, x_dtype, shd: Shardings = NO_SHARDING):
     h, hd, d = p["wo"].shape
-    return o.flatten(-2) @ p["wo"].to(x_dtype).reshape(h * hd, d)
+    out = _grad_as_input(_heads_whole(o).flatten(-2)) @ _grad_as_input(
+        p["wo"].to(x_dtype).reshape(h * hd, d))
+    # seq-sharded output under SP: the tp-partial sum becomes a
+    # reduce-scatter (Megatron sequence parallelism); no-op otherwise
+    return shd.act(out, "batch", "seq", None)
 
 
 # --------------------------------------------------------------------- #
@@ -230,14 +303,14 @@ def _act_fn(cfg: ModelConfig):
             "relu": F.relu}[cfg.mlp_act]
 
 
-def mlp_forward(x, p, cfg: ModelConfig):
+def mlp_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     act = _act_fn(cfg)
     up = x @ p["wu"].to(x.dtype)
     if cfg.gated_mlp:
         up = act(x @ p["wg"].to(x.dtype)) * up
     else:
         up = act(up)
-    return up @ p["wd"].to(x.dtype)
+    return shd.act(up @ p["wd"].to(x.dtype), "batch", "seq", None)
 
 
 # --------------------------------------------------------------------- #
@@ -286,7 +359,7 @@ def _router_dtype(x):
     return torch.promote_types(x.dtype, torch.float32)
 
 
-def moe_dispatch(x, router, cfg: ModelConfig):
+def moe_dispatch(x, router, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     """Router + top-k gate + capacity scatter. Returns `(buf, topi, pos, w,
     gates)`: the (B, E, C, D) dispatch buffer in x's dtype, each token's
     expert ids, row-local capacity positions (>= C for a dropped token)
@@ -294,12 +367,19 @@ def moe_dispatch(x, router, cfg: ModelConfig):
     softmax (for the aux loss). Positions are cumsums within each batch
     row, so a dead serving slot never takes a live row's capacity. Every
     kept (b, e, pos) receives exactly one token and a dropped one adds
-    zeros at C - 1, so the accumulating scatter is exact in any order."""
+    zeros at C - 1, so the accumulating scatter is exact in any order.
+    On a mesh everything after the router product runs on each device's
+    batch rows (`Shardings.local`): the scatter is row-local."""
+    rt = _router_dtype(x)
+    logits = x.to(rt) @ router.to(rt)
+    return shd.local(lambda x, logits: _dispatch_rows(x, logits, cfg),
+                     x, logits, n_out=5)
+
+
+def _dispatch_rows(x, logits, cfg: ModelConfig):
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     cap = max(int(CAPACITY_FACTOR * k * s / e), 1)
-    rt = _router_dtype(x)
-    logits = x.to(rt) @ router.to(rt)
     gates = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(gates, k, dim=-1)              # (B,S,k)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
@@ -386,7 +466,25 @@ def _expert_mm(buf, w):
     """Float `einsum("becd,edf->becf")`: one batched product over E."""
     if buf.is_cuda:
         EXPERT_MM.count("float")
+    if is_dtensor(buf):
+        # DTensor's einsum views its local operands and, in its backward,
+        # the output's gradient; a permuted local layout (from an earlier
+        # product) cannot be viewed
+        return _ContiguousGrad.apply(torch.einsum(
+            "becd,edf->becf", buf.contiguous(), w.to(buf.dtype)))
     return torch.einsum("becd,edf->becf", buf, w.to(buf.dtype))
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
 
 
 def quantize_experts(p) -> dict:
@@ -395,7 +493,8 @@ def quantize_experts(p) -> dict:
     return {n: quantize_q8(p[n]) for n in ("wu", "wg", "wd") if n in p}
 
 
-def moe_expert_ffn_q8(buf, q8, cfg: ModelConfig):
+def moe_expert_ffn_q8(buf, q8, cfg: ModelConfig,
+                      shd: Shardings = NO_SHARDING):
     """`moe_expert_ffn` on int8 expert weights `q8` ({"wu": (q, scale),
     ...}, from `quantize_experts`): int8 x int8 contractions into exact
     int32 accumulators, dequantized in f32 by the row activation scale
@@ -406,41 +505,52 @@ def moe_expert_ffn_q8(buf, q8, cfg: ModelConfig):
     xq, sx = _quantize_rows(buf.float())
     wuq, su = q8["wu"]
     up = int8_expert_matmul(xq, wuq).float() * sx * su[None, :, 0, None, :]
+    up = shd.act(up, "batch", None, None, "tp")
     if cfg.gated_mlp:
         wgq, sg = q8["wg"]
         gate = int8_expert_matmul(xq, wgq).float() * sx \
             * sg[None, :, 0, None, :]
-        up = act(gate) * up
+        up = shd.act(act(gate), "batch", None, None, "tp") * up
     else:
         up = act(up)
     uq, sup = _quantize_rows(up)
     wdq, sd = q8["wd"]
     out = int8_expert_matmul(uq, wdq).float() * sup * sd[None, :, 0, None, :]
-    return out.to(buf.dtype)
+    return shd.act(out.to(buf.dtype), "batch", None, None, None)
 
 
-def moe_expert_ffn(buf, p, cfg: ModelConfig):
+def moe_expert_ffn(buf, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     """The per-expert (gated) FFN over the (B, E, C, D) dispatch buffer.
     With `cfg.quant == "int8"` the int8 route: on `p["q8"]` where the
     caller quantized the weights ahead (the serving engine does, once),
-    else on weights quantized here; both give the same integers."""
+    else on weights quantized here; both give the same integers. On a
+    mesh the expert products' outputs are held tp-sharded, as the
+    reference's."""
     if cfg.quant == "int8":
         q8 = p["q8"] if "q8" in p else quantize_experts(p)
-        return moe_expert_ffn_q8(buf, q8, cfg)
+        return moe_expert_ffn_q8(buf, q8, cfg, shd)
     act = _act_fn(cfg)
-    up = _expert_mm(buf, p["wu"])
+    up = shd.act(_expert_mm(buf, p["wu"]), "batch", None, None, "tp")
     if cfg.gated_mlp:
-        up = act(_expert_mm(buf, p["wg"])) * up
+        gate = shd.act(act(_expert_mm(buf, p["wg"])), "batch", None, None,
+                       "tp")
+        up = gate * up
     else:
         up = act(up)
-    return _expert_mm(up, p["wd"])
+    return shd.act(_expert_mm(up, p["wd"]), "batch", None, None, None)
 
 
-def moe_combine(out_buf, topi, pos, w, dtype):
+def moe_combine(out_buf, topi, pos, w, dtype, shd: Shardings = NO_SHARDING):
     """Gather each token's expert outputs back from the (B, E, C, D)
     buffer and sum them with the gate weights. A dropped token's position
     (>= C) is clamped to C - 1, as the reference's gather clamps it, and
-    its weight is zero."""
+    its weight is zero. On a mesh the gather runs on each device's batch
+    rows."""
+    return shd.local(lambda o, t, p, w: _combine_rows(o, t, p, w, dtype),
+                     out_buf, topi, pos, w)
+
+
+def _combine_rows(out_buf, topi, pos, w, dtype):
     b, s, k = topi.shape
     bidx = torch.arange(b, device=out_buf.device)[:, None, None]
     gathered = out_buf[bidx.expand(b, s, k), topi,
@@ -448,25 +558,26 @@ def moe_combine(out_buf, topi, pos, w, dtype):
     return (gathered * w[..., None].to(dtype)).sum(2)
 
 
-def moe_forward(x, p, cfg: ModelConfig):
+def moe_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     """Top-k expert MLP with per-row capacity dispatch: `moe_dispatch`,
     `moe_expert_ffn`, `moe_combine`, plus the shared experts (sigmoid
     gated for qwen2-moe). Returns (y, aux), aux the Switch-style
     load-balance loss in f32."""
     e, k = cfg.n_experts, cfg.top_k
-    buf, topi, pos, w, gates = moe_dispatch(x, p["router"], cfg)
+    buf, topi, pos, w, gates = moe_dispatch(x, p["router"], cfg, shd)
 
     me = gates.float().mean(dim=(0, 1))
-    ce = F.one_hot(topi, e).float().sum(2).mean(dim=(0, 1)) / k
+    counts = shd.local(lambda t: F.one_hot(t, e).float().sum(2), topi)
+    ce = counts.mean(dim=(0, 1)) / k
     aux = e * (me * ce).sum()
 
-    out_buf = moe_expert_ffn(buf, p, cfg)
-    y = moe_combine(out_buf, topi, pos, w, x.dtype)
+    out_buf = moe_expert_ffn(buf, p, cfg, shd)
+    y = moe_combine(out_buf, topi, pos, w, x.dtype, shd)
 
     if cfg.n_shared_experts:
-        sh = mlp_forward(x, p["shared"], cfg)
+        sh = mlp_forward(x, p["shared"], cfg, shd)
         rt = _router_dtype(x)
-        sg = torch.sigmoid(x.to(rt) @ p["shared_gate"].to(rt))
+        sg = _grad_as_input(torch.sigmoid(x.to(rt) @ p["shared_gate"].to(rt)))
         y = y + (sh * sg.to(x.dtype) if cfg.name.startswith("qwen2-moe")
                  else sh)
-    return y, aux
+    return shd.act(y, "batch", "seq", None), aux

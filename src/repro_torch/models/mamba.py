@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .sharding import ParamDef
+from .sharding import NO_SHARDING, ParamDef, Shardings
 
 
 def mamba_defs(cfg: ModelConfig, name: str) -> dict:
@@ -84,7 +84,8 @@ def _ssm_scan_chunked(dA, dBx, C, h0, chunk: int):
     return torch.cat(ys, dim=1), h
 
 
-def mamba_forward(x, p, cfg: ModelConfig, state=None):
+def mamba_forward(x, p, cfg: ModelConfig, state=None,
+                  shd: Shardings = NO_SHARDING):
     """x: (B,S,D). state: None (training) or {"h": (B,di,ds), "conv":
     (B,k-1,di)} for prefill and decode. Returns (y, new_state); the caller
     writes new_state into the cache."""
@@ -94,12 +95,15 @@ def mamba_forward(x, p, cfg: ModelConfig, state=None):
     acc = torch.promote_types(x.dtype, torch.float32)
 
     xin, z = (x @ p["in_proj"].to(x.dtype)).chunk(2, dim=-1)
+    xin = shd.act(xin, "batch", None, "tp")
     conv_state = state["conv"] if state is not None else None
     xin, new_conv = _causal_conv(xin, p["conv_w"].to(x.dtype),
                                  p["conv_b"].to(x.dtype), conv_state)
     xin = F.silu(xin)
 
-    dbc = xin @ p["x_proj"].to(x.dtype)
+    # the projection contracts the tp-sharded inner dim: its small output
+    # (dt_rank + 2 d_state per token) is reduced to a replica at once
+    dbc = shd.act(xin @ p["x_proj"].to(x.dtype), "batch", None, None)
     dt, B_, C_ = dbc.split([r, ds, ds], dim=-1)
     dt = F.softplus((dt @ p["dt_proj"].to(x.dtype)).to(acc)
                     + p["dt_bias"].to(acc))
@@ -107,6 +111,10 @@ def mamba_forward(x, p, cfg: ModelConfig, state=None):
     xin_f = xin.to(acc)
     dA = torch.exp(dt[..., None] * A)                      # (B,S,di,ds)
     dBx = (dt * xin_f)[..., None] * B_.to(acc)[:, :, None, :]
+    # keep the (B,S,di,ds) intermediates sharded on di over tp, as the
+    # reference constrains them
+    dA = shd.act(dA, "batch", None, "tp", None)
+    dBx = shd.act(dBx, "batch", None, "tp", None)
 
     h0 = (state["h"].to(acc) if state is not None
           else torch.zeros((b, di, ds), dtype=acc, device=x.device))
@@ -121,12 +129,22 @@ def mamba_forward(x, p, cfg: ModelConfig, state=None):
             dA = torch.cat([dA, dA.new_ones((b, pad, di, ds))], dim=1)
             dBx = torch.cat([dBx, dBx.new_zeros((b, pad, di, ds))], dim=1)
             Cf = torch.cat([Cf, Cf.new_zeros((b, pad, ds))], dim=1)
-        y, h_final = _ssm_scan_chunked(dA, dBx, Cf, h0, chunk)
+        # local along batch and the inner dim: on a mesh each device
+        # scans its own rows and channels
+        sp = dA.shape[1]
+        y, h_final = shd.local_with(
+            lambda a, bx, c, h: _ssm_scan_chunked(a, bx, c, h, chunk),
+            (dA, dBx, Cf, h0),
+            (("batch", None, "tp", None), ("batch", None, "tp", None),
+             ("batch", None, None), ("batch", "tp", None)),
+            (((b, sp, di), ("batch", None, "tp")),
+             ((b, di, ds), ("batch", "tp", None))))
         y = y[:, :s]
 
+    y = shd.act(y, "batch", None, "tp")
     y = y + xin_f * p["D"].to(acc)
     y = y.to(x.dtype) * F.silu(z)
-    out = y @ p["out_proj"].to(x.dtype)
+    out = shd.act(y @ p["out_proj"].to(x.dtype), "batch", "seq", None)
     return out, {"h": h_final, "conv": new_conv}
 
 

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .sharding import ParamDef
+from .sharding import NO_SHARDING, ParamDef, Shardings
 
 #: chunk length of the parallel wkv form. 8 * max |log w| (= 8 by the decay
 #: clamp) keeps every pairwise exponent within f32 range.
@@ -111,7 +111,8 @@ def _token_shift(x, shift_state):
     return torch.cat([shift_state.to(x.dtype), x[:, :-1]], dim=1)
 
 
-def rwkv_time_mix(x, p, cfg: ModelConfig, state):
+def rwkv_time_mix(x, p, cfg: ModelConfig, state,
+                  shd: Shardings = NO_SHARDING):
     """Returns (out, {"wkv", "shift_tm"}). The routes: chunked iff
     S > 1 and S % WKV_CHUNK == 0, else per token."""
     b, s, d = x.shape
@@ -145,9 +146,18 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, state):
     u = p["faaaa"].to(acc)
     S0 = state["wkv"].to(acc)
     if s > 1 and s % WKV_CHUNK == 0:
-        S_final, o = _wkv_chunked(rh, kh, vh, wh, u, S0, WKV_CHUNK)
+        route = lambda *a: _wkv_chunked(*a, WKV_CHUNK)
     else:
-        S_final, o = _wkv_per_token(rh, kh, vh, wh, u, S0)
+        route = _wkv_per_token
+    # local along batch and heads: on a mesh each device runs the
+    # recurrence of its own rows (and heads, where tp divides them)
+    heads = ("batch", None, "tp", None)
+    S_final, o = shd.local_with(
+        route, (rh, kh, vh, wh, u, S0),
+        (heads, heads, heads, heads, ("tp", None),
+         ("batch", "tp", None, None)),
+        (((b, h, hs, hs), ("batch", "tp", None, None)),
+         ((b, s, h, hs), heads)))
 
     # group norm over each head (ln_x), then the gate and the output
     # projection
@@ -155,11 +165,14 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, state):
     var = (o - mu).square().mean(-1, keepdim=True)
     o = (o - mu) * torch.rsqrt(var + 64e-5)
     o = o.reshape(b, s, d) * p["ln_x"].to(acc)
-    out = (o.to(x.dtype) * g) @ p["wo"].to(x.dtype)
+    out = shd.act(o.to(x.dtype) * g, "batch", None, None) \
+        @ p["wo"].to(x.dtype)
+    out = shd.act(out, "batch", "seq", None)
     return out, {"wkv": S_final, "shift_tm": x[:, -1:]}
 
 
-def rwkv_channel_mix(x, p, cfg: ModelConfig, state):
+def rwkv_channel_mix(x, p, cfg: ModelConfig, state,
+                     shd: Shardings = NO_SHARDING):
     """Returns (out, {"shift_cm"})."""
     xx = _token_shift(x, state["shift_cm"]) - x
     xk = x + xx * p["cm_maa_k"].to(x.dtype)
@@ -167,7 +180,7 @@ def rwkv_channel_mix(x, p, cfg: ModelConfig, state):
     k = torch.square(F.relu(xk @ p["cm_wk"].to(x.dtype)))
     kv = k @ p["cm_wv"].to(x.dtype)
     r = torch.sigmoid(xr @ p["cm_wr"].to(x.dtype))
-    return r * kv, {"shift_cm": x[:, -1:]}
+    return shd.act(r * kv, "batch", "seq", None), {"shift_cm": x[:, -1:]}
 
 
 def rwkv_state_defs(cfg: ModelConfig, batch: int, name: str) -> dict:

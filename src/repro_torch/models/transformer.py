@@ -32,6 +32,14 @@ layer) runs under `torch.utils.checkpoint`, the counterpart of the
 reference's `jax.checkpoint`: its activations are recomputed in the
 backward. The flash-attention calls then carry a gradient through the
 backward kernel (`kernels.ops`). `lm_loss` is the reference's loss.
+
+On a mesh (`shd`, parameters and inputs as DTensors) `forward` carries
+the reference's activation constraints (`Shardings.act`) at the same
+places, runs under `Shardings.implicit` (constants the step makes meet
+DTensors as replicated), repeats K/V to all heads before the kernels
+where heads are sharded (`layers.heads_for_kernel`), and the attention
+wrappers run on each device's shard (`kernels.ops`). Without a mesh
+every constraint is a no-op.
 """
 
 from __future__ import annotations
@@ -48,7 +56,8 @@ from . import layers as L
 from .config import LayerSpec, ModelConfig, torch_dtype
 from .mamba import mamba_defs, mamba_forward
 from .rwkv import rwkv_channel_mix, rwkv_defs, rwkv_time_mix
-from .sharding import ParamDef, stack_defs, tree_map
+from .sharding import (NO_SHARDING, ParamDef, Shardings, is_dtensor,
+                       stack_defs, tree_map, tree_shape_structs, tree_specs)
 
 
 # --------------------------------------------------------------------- #
@@ -96,23 +105,36 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
-def init_params(rng, cfg: ModelConfig, device=None) -> dict:
+def init_params(rng, cfg: ModelConfig, device=None,
+                shd: Shardings | None = None) -> dict:
     """Random parameters on `device` (None: the card): `init_tree` of
-    `param_defs(cfg)`."""
-    return init_tree(param_defs(cfg), rng, cfg, device)
+    `param_defs(cfg)`; with `shd` on a mesh, DTensors of `param_specs`."""
+    return init_tree(param_defs(cfg), rng, cfg, device, shd)
 
 
-def init_tree(defs, rng, cfg: ModelConfig, device=None) -> dict:
+def param_shape_structs(cfg: ModelConfig):
+    """The parameters as `meta` tensors (the dry run's stand-ins)."""
+    return tree_shape_structs(param_defs(cfg), cfg.dtype)
+
+
+def param_specs(cfg: ModelConfig, shd: Shardings):
+    return tree_specs(shd, param_defs(cfg))
+
+
+def init_tree(defs, rng, cfg: ModelConfig, device=None,
+              shd: Shardings | None = None) -> dict:
     """Random tensors for a `ParamDef` tree on `device` (None: the card).
     `rng` is a `torch.Generator` on that device or an int seed for one.
     Leaves are drawn in the reference's tree order with its rule: normal
     with scale 1/sqrt(fan_in), fan_in = shape[-2] of the (stacked) tensor
-    (0.02 for "small"), drawn in f32 and cast to the parameter dtype."""
+    (0.02 for "small"), drawn in f32 and cast to the parameter dtype.
+    With `shd` on a mesh every rank draws the whole leaf (same seed, same
+    values as without a mesh) and keeps its shard of the leaf's spec."""
     dev = resolve_device(device)
     gen = (rng if isinstance(rng, torch.Generator)
            else torch.Generator(device=dev).manual_seed(int(rng)))
 
-    def mk(d: ParamDef):
+    def draw(d: ParamDef):
         dt = torch_dtype(d.dtype or cfg.dtype)
         if d.init == "zeros":
             return torch.zeros(d.shape, dtype=dt, device=dev)
@@ -123,6 +145,12 @@ def init_tree(defs, rng, cfg: ModelConfig, device=None) -> dict:
         arr = torch.randn(d.shape, generator=gen, dtype=torch.float32,
                           device=dev)
         return arr.mul_(scale).to(dt)
+
+    def mk(d: ParamDef):
+        arr = draw(d)
+        if shd is not None and shd.mesh is not None:
+            arr = shd.place(arr, shd.spec(d.shape, d.kinds, d.name))
+        return arr
 
     return tree_map(mk, defs)
 
@@ -155,26 +183,31 @@ def quantize_moe_params(params, cfg: ModelConfig) -> dict:
 # attention sub-layer with all cache modes
 # --------------------------------------------------------------------- #
 
-def _attention(x, p, cfg: ModelConfig, rope, kv_cache, index, width):
+def _attention(x, p, cfg: ModelConfig, rope, kv_cache, index, width,
+               shd: Shardings = NO_SHARDING):
     """Self-attention; a prefill or decode step writes its K/V into
     `kv_cache` in place. Returns attn_out."""
     s = x.shape[1]
     sin, cos = rope
-    q, k, v = L._qkv(x, p, cfg, rope_sin=sin, rope_cos=cos)
+    decoding = kv_cache is not None and s == 1
+    q, k, v = L._qkv(x, p, cfg, shd, rope_sin=sin, rope_cos=cos,
+                     heads_tp=not decoding)
 
-    if kv_cache is None or s > 1:   # training, or prefill into a fresh cache
+    if not decoding:   # training, or prefill into a fresh cache
         if kv_cache is not None:
             cache_lib.write_prefill(kv_cache, k, v)
+        q, k, v = L.heads_for_kernel(q, k, v, shd)
         o = ops.flash_attention(q, k, v, causal=True,
                                 window=cfg.sliding_window)
-        return L.attn_out(o, p, x.dtype)
+        return L.attn_out(o, p, x.dtype, shd)
 
     cache_lib.write_decode(kv_cache, k, v, index, width)
-    o = L.cached_attention(q, kv_cache["k"], kv_cache["v"], index, cfg)
-    return L.attn_out(o, p, x.dtype)
+    o = L.cached_attention(q, kv_cache["k"], kv_cache["v"], index, cfg, shd)
+    return L.attn_out(o, p, x.dtype, shd)
 
 
-def _cross_attention(x, p, cfg: ModelConfig, cross_cache, encoder_out):
+def _cross_attention(x, p, cfg: ModelConfig, cross_cache, encoder_out,
+                     shd: Shardings = NO_SHARDING):
     """Whisper-style cross-attention, no mask. With `encoder_out` (a
     prefill, or a training forward) the encoder K/V are computed and, if
     there is a cache, written into it; without it they are read from the
@@ -196,13 +229,22 @@ def _cross_attention(x, p, cfg: ModelConfig, cross_cache, encoder_out):
         o = ops.decode_attention(q[:, 0].contiguous(), k, v,
                                  k.shape[1])[:, None]
     else:
-        o = ops.flash_attention(q, k, v, causal=False)
-    return L.attn_out(o, p, x.dtype)
+        o = ops.flash_attention(*L.heads_for_kernel(q, k, v, shd),
+                                causal=False)
+    return L.attn_out(o, p, x.dtype, shd)
 
 
 # --------------------------------------------------------------------- #
 # block and stack
 # --------------------------------------------------------------------- #
+
+def _norm(x, p, cfg: ModelConfig, shd: Shardings):
+    """The block's norm, then (on a mesh) the activation gathered over
+    the sequence: under sequence parallelism the norm runs on sequence
+    shards and its output is all-gathered before the tensor-parallel
+    products (Megatron SP); without SP or a mesh it is the norm alone."""
+    return shd.act(L.apply_norm(x, p, cfg), "batch", None, None)
+
 
 def _rwkv_zero_state(x, cfg: ModelConfig) -> dict:
     b = x.shape[0]
@@ -216,51 +258,58 @@ def _rwkv_zero_state(x, cfg: ModelConfig) -> dict:
 
 def _write_state(cache_slice, new_state) -> None:
     """Copy a layer's new recurrent state into its cache views (in place:
-    a rebound name would never reach the stacked cache)."""
+    a rebound name would never reach the stacked cache). A DTensor state
+    is first laid out as its cache leaf is: DTensor's `copy_` refuses a
+    change of placement, and every state is row-local."""
     for name, t in new_state.items():
-        cache_slice[name].copy_(t)
+        dst = cache_slice[name]
+        if is_dtensor(dst) and tuple(t.placements) != tuple(dst.placements):
+            t = t.redistribute(dst.device_mesh, dst.placements)
+        dst.copy_(t)
 
 
 def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
-                  cache_slice, index, width, encoder_out=None):
+                  cache_slice, index, width, encoder_out=None,
+                  shd: Shardings = NO_SHARDING):
     """One pattern position. `cache_slice` (None without a cache) is the
     layer's tree of cache views, updated in place. Returns (x, aux): aux
     is the MoE layer's load-balance loss, a Python 0.0 for any other
     layer (no device op)."""
     aux = 0.0
-    h = L.apply_norm(x, p["ln1"], cfg)
+    h = _norm(x, p["ln1"], cfg, shd)
     if spec.kind == "attn":
         x = x + _attention(h, p["attn"], cfg, rope, cache_slice, index,
-                           width)
+                           width, shd)
         if spec.cross_attn:
-            h = L.apply_norm(x, p["ln_cross"], cfg)
+            h = _norm(x, p["ln_cross"], cfg, shd)
             cc = None if cache_slice is None else cache_slice["cross"]
-            x = x + _cross_attention(h, p["cross"], cfg, cc, encoder_out)
+            x = x + _cross_attention(h, p["cross"], cfg, cc, encoder_out,
+                                     shd)
     elif spec.kind == "mamba":
-        o, state = mamba_forward(h, p["mamba"], cfg, cache_slice)
+        o, state = mamba_forward(h, p["mamba"], cfg, cache_slice, shd)
         x = x + o
         if cache_slice is not None:
             _write_state(cache_slice, state)
     elif spec.kind == "rwkv":
         state = (cache_slice if cache_slice is not None
                  else _rwkv_zero_state(x, cfg))
-        o, tm_state = rwkv_time_mix(h, p["rwkv"], cfg, state)
+        o, tm_state = rwkv_time_mix(h, p["rwkv"], cfg, state, shd)
         x = x + o
-        h2 = L.apply_norm(x, p["ln2"], cfg)
-        o2, cm_state = rwkv_channel_mix(h2, p["rwkv"], cfg, state)
+        h2 = _norm(x, p["ln2"], cfg, shd)
+        o2, cm_state = rwkv_channel_mix(h2, p["rwkv"], cfg, state, shd)
         x = x + o2
         if cache_slice is not None:
             _write_state(cache_slice, {**tm_state, **cm_state})
         return x, aux
 
     if spec.mlp != "none":
-        h = L.apply_norm(x, p["ln2"], cfg)
+        h = _norm(x, p["ln2"], cfg, shd)
         if spec.mlp == "moe":
-            o, aux = L.moe_forward(h, p["mlp"], cfg)
+            o, aux = L.moe_forward(h, p["mlp"], cfg, shd)
         else:
-            o = L.mlp_forward(h, p["mlp"], cfg)
+            o = L.mlp_forward(h, p["mlp"], cfg, shd)
         x = x + o
-    return x, aux
+    return shd.act(x, "batch", "seq", None), aux
 
 
 def _training(cache_layers=None) -> bool:
@@ -279,7 +328,7 @@ def _unbound(stacked, n: int) -> list:
 
 
 def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
-                  width, encoder_out=None):
+                  width, encoder_out=None, shd: Shardings = NO_SHARDING):
     """Walk the blocks in order, summing the layers' aux losses in the
     reference scan's order (a Python 0.0 while no MoE layer has run).
     Each layer's cache slice is a tree of views into the stacked
@@ -298,7 +347,8 @@ def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
             for blk in range(blk0, blk0 + g):
                 for i, spec in enumerate(pattern):
                     x, a = block_forward(x, spec, blocks[i][blk], cfg, rope,
-                                         None, index, width, encoder_out)
+                                         None, index, width, encoder_out,
+                                         shd)
                     aux = aux + a
             return x, aux
 
@@ -317,7 +367,7 @@ def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
             sl = (None if cache_layers is None
                   else tree_map(lambda t: t[blk], cache_layers[i]))
             x, a = block_forward(x, spec, lp, cfg, rope, sl, index, width,
-                                 encoder_out)
+                                 encoder_out, shd)
             aux = aux + a
     return x, cache_layers, aux
 
@@ -326,21 +376,25 @@ def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
 # encoder (whisper backbone; frame embeddings come from the stub frontend)
 # --------------------------------------------------------------------- #
 
-def encoder_forward(embeds, params, cfg: ModelConfig):
+def encoder_forward(embeds, params, cfg: ModelConfig,
+                    shd: Shardings = NO_SHARDING):
     """The whisper encoder over frame embeddings (B, encoder_seq, D): a
     sinusoid added, then pre-norm attention layers without RoPE and
     without a mask, and a final norm. In training each layer runs under
     `checkpoint` when `cfg.remat`."""
     x = embeds + _sinusoid(cfg.encoder_seq, cfg.d_model,
                            embeds.device).to(embeds.dtype)
+    x = shd.act(x, "batch", None, None)
 
     def layer(x, p):
-        h = L.apply_norm(x, p["ln1"], cfg)
-        q, k, v = L._qkv(h, p["attn"], cfg)
-        o = ops.flash_attention(q, k, v, causal=False)
-        x = x + L.attn_out(o, p["attn"], x.dtype)
-        h = L.apply_norm(x, p["ln2"], cfg)
-        return x + L.mlp_forward(h, p["mlp"], cfg)
+        h = _norm(x, p["ln1"], cfg, shd)
+        q, k, v = L._qkv(h, p["attn"], cfg, shd)
+        o = ops.flash_attention(*L.heads_for_kernel(q, k, v, shd),
+                                causal=False)
+        x = x + L.attn_out(o, p["attn"], x.dtype, shd)
+        h = _norm(x, p["ln2"], cfg, shd)
+        x = x + L.mlp_forward(h, p["mlp"], cfg, shd)
+        return shd.act(x, "batch", None, None)
 
     if _training():
         for p in _unbound(params["layers"], cfg.encoder_layers):
@@ -349,7 +403,7 @@ def encoder_forward(embeds, params, cfg: ModelConfig):
     else:
         for i in range(cfg.encoder_layers):
             x = layer(x, tree_map(lambda t: t[i], params["layers"]))
-    return L.apply_norm(x, params["final_norm"], cfg)
+    return _norm(x, params["final_norm"], cfg, shd)
 
 
 def _sinusoid(s, d, device=None):
@@ -366,15 +420,35 @@ def _sinusoid(s, d, device=None):
 # --------------------------------------------------------------------- #
 
 def mask_vocab_padding(logits, cfg: ModelConfig):
-    """Mask Megatron-style vocab padding out of the softmax (in place)."""
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits[..., cfg.vocab_size:] = -1e30
+    """Mask Megatron-style vocab padding out of the softmax (in place; a
+    DTensor, whose vocab dim may be sharded, by a `where`)."""
+    if cfg.padded_vocab == cfg.vocab_size:
+        return logits
+    if is_dtensor(logits):
+        keep = torch.arange(cfg.padded_vocab,
+                            device=logits.device) < cfg.vocab_size
+        return torch.where(keep, logits, torch.full(
+            (), -1e30, dtype=logits.dtype, device=logits.device))
+    logits[..., cfg.vocab_size:] = -1e30
     return logits
 
 
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             positions=None, mrope_positions=None, cache=None,
-            encoder_embeds=None):
+            encoder_embeds=None, shd: Shardings | None = None):
+    """Returns (logits, new_cache, aux); module docstring. `shd` (None: no
+    mesh) carries the mesh and the policy when the parameters and inputs
+    are DTensors."""
+    shd = shd if shd is not None else NO_SHARDING
+    with shd.implicit():
+        return _forward(params, cfg, shd, tokens=tokens, embeds=embeds,
+                        positions=positions,
+                        mrope_positions=mrope_positions, cache=cache,
+                        encoder_embeds=encoder_embeds)
+
+
+def _forward(params, cfg: ModelConfig, shd: Shardings, *, tokens, embeds,
+             positions, mrope_positions, cache, encoder_embeds):
     """Returns (logits, new_cache, aux). Input is `tokens` (B, S) or
     `embeds` (B, S, D); `encoder_embeds` (B, encoder_seq, D) runs the
     encoder (whisper) and, with a cache, fills its cross K/V; without
@@ -387,7 +461,15 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
         b, s = x.shape[:2]
     else:
         b, s = tokens.shape
-        x = params["embed"][tokens].to(torch_dtype(cfg.dtype))
+        # on a mesh the gather runs on each device's rows and its shard
+        # of the embedding's width (DTensor has no rule for every layout
+        # of an index by a row-sharded tensor, nor for its backward)
+        emb = params["embed"]
+        x = shd.local_with(lambda e, t: e[t], (emb, tokens),
+                           ((None, "tp"), ("batch", None)),
+                           (((b, s, emb.shape[1]), ("batch", None, "tp")),))
+        x = x.to(torch_dtype(cfg.dtype))
+    x = shd.act(x, "batch", None, None)
     dev = x.device
 
     index = (cache["index"] if cache is not None
@@ -407,7 +489,8 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
     encoder_out = None
     if cfg.encoder_layers and encoder_embeds is not None:
         encoder_out = encoder_forward(
-            encoder_embeds.to(torch_dtype(cfg.dtype)), params["encoder"], cfg)
+            encoder_embeds.to(torch_dtype(cfg.dtype)), params["encoder"], cfg,
+            shd)
 
     width = 0
     cache_layers = None
@@ -420,11 +503,12 @@ def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             attn_index = positions[:, -1]
 
     x, new_layers, aux = stack_forward(x, params, cfg, rope, cache_layers,
-                                       attn_index, width, encoder_out)
+                                       attn_index, width, encoder_out, shd)
 
-    x = L.apply_norm(x, params["final_norm"], cfg)
+    x = _norm(x, params["final_norm"], cfg, shd)
     wv = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = mask_vocab_padding(x @ wv.to(x.dtype).t(), cfg)
+    logits = shd.act(x @ wv.to(x.dtype).t(), "batch", None, "vocab")
+    logits = mask_vocab_padding(logits, cfg)
 
     new_cache = None
     if cache is not None:
@@ -458,5 +542,15 @@ def lm_loss(logits, labels, aux=0.0, aux_weight: float = 0.01):
     one-hot contraction adds zeros to it, the same value."""
     lf = logits.to(torch.promote_types(logits.dtype, torch.float32))
     lse = torch.logsumexp(lf, dim=-1)
-    ll = lf.gather(-1, labels.long()[..., None])[..., 0]
+    if is_dtensor(lf):
+        # the reference's vocab-sharded-safe form: the label logit plus
+        # exact zeros (a gather across vocab shards has no DTensor rule),
+        # the mask cut locally to the logits' layout
+        hit = torch.arange(lf.shape[-1], device=lf.device) == \
+            labels.long()[..., None]
+        hit = hit.redistribute(lf.device_mesh, lf.placements)
+        ll = torch.where(hit, lf, torch.zeros((), dtype=lf.dtype,
+                                              device=lf.device)).sum(-1)
+    else:
+        ll = lf.gather(-1, labels.long()[..., None])[..., 0]
     return (lse - ll).mean() + aux_weight * aux

@@ -18,7 +18,8 @@ with decode steps (`repro_torch.benchmarks.gateway_bench`)."""
 
 from .dispatch_engine import (DispatchDecodeStep, DispatchPrefillStep,
                               dims_for_config, make_dispatch_decode_step)
-from .engine import Request, ServeEngine, sample
+from .engine import (Request, ServeEngine, make_decode_step,
+                     make_prefill_step, sample)
 from .gateway import (PRIORITIES, AdmissionQueue, Gateway, GatewayRequest,
                       GatewayStats, ManualClock, PricedPlan,
                       load_arrival_trace, percentile, poisson_requests,

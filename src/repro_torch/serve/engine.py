@@ -26,6 +26,28 @@ from ..device import resolve_device
 from ..models import ModelConfig, forward, init_cache, quantize_moe_params
 
 
+def make_prefill_step(cfg: ModelConfig, shd=None):
+    """(params, cache, batch_inputs) -> (last_logits, cache): the
+    reference's prefill step (`forward` with the cache, under no_grad);
+    the cache is written in place and returned."""
+    def prefill_step(params, cache, inputs):
+        with torch.no_grad():
+            logits, cache, _ = forward(params, cfg, cache=cache, shd=shd,
+                                       **inputs)
+        return logits[:, -1], cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, shd=None):
+    """(params, cache, tokens (B,1)) -> (logits (B,V), cache)."""
+    def decode_step(params, cache, tokens):
+        with torch.no_grad():
+            logits, cache, _ = forward(params, cfg, tokens=tokens,
+                                       cache=cache, shd=shd)
+        return logits[:, -1], cache
+    return decode_step
+
+
 def sample(logits, generator=None, temperature: float = 0.0):
     """Greedy argmax (`temperature <= 0`) or temperature sampling over the
     last axis of `logits`; returns int32 token ids."""

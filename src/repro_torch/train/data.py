@@ -22,6 +22,7 @@ import torch
 from ..configs.shapes import ShapeConfig
 from ..device import resolve_device
 from ..models import ModelConfig, torch_dtype
+from ..models.sharding import P
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,9 +42,12 @@ def _zipf_tokens(gen, shape, vocab: int, exponent: float) -> torch.Tensor:
 
 
 def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
-               data_cfg: DataConfig = DataConfig(), device=None) -> dict:
+               data_cfg: DataConfig = DataConfig(), device=None,
+               shd=None) -> dict:
     """Batch for `step`, derived from (data_cfg.seed, step) alone, on
-    `device` (None: the card)."""
+    `device` (None: the card). With `shd` on a mesh every field is a
+    DTensor, batch-sharded (`Shardings.batch_spec`), `mrope_positions`
+    replicated."""
     dev = resolve_device(device)
     gen = torch.Generator().manual_seed(
         (int(data_cfg.seed) << 32) + int(step))
@@ -67,4 +71,9 @@ def make_batch(cfg: ModelConfig, shape: ShapeConfig, step: int,
         batch["encoder_embeds"] = torch.randn(
             (b, cfg.encoder_seq, cfg.d_model), generator=gen,
             dtype=torch.float32).to(dt)
-    return {k: v.to(dev) for k, v in batch.items()}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    if shd is not None and shd.mesh is not None:
+        batch = {k: shd.place(v, P() if k == "mrope_positions"
+                              else shd.batch_spec(v.shape))
+                 for k, v in batch.items()}
+    return batch

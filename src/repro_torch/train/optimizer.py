@@ -12,8 +12,10 @@ Unlike the reference's pure function, `adamw_update` writes the new
 parameters and moments into the tensors it is given, leaf by leaf, with f32
 temporaries for one leaf at a time: at full width a stacked leaf is
 gigabytes per f32 copy, and a copy of every leaf would not fit beside the
-weights. The reference's `opt_specs` comes with `launch.mesh` (ROADMAP
-Queue 1, item 18c).
+weights. On a mesh the moments are DTensors laid out as their parameters
+(`opt_specs`: ZeRO-style, the FSDP axis shards both) and the update runs
+leaf by leaf on each device's shard; the global norm's sums become one
+all-reduce.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import math
 import torch
 
 from ..models import ModelConfig, torch_dtype
-from ..models.sharding import tree_map
+from ..models.sharding import P, is_dtensor, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,10 +63,15 @@ def schedule(step, hp: HParams) -> torch.Tensor:
 
 
 def adamw_init(params, cfg: ModelConfig) -> dict:
-    """Zero moments in cfg.opt_moment_dtype, same tree as params; the step
-    a 0-dim int32 on the parameters' device."""
+    """Zero moments in cfg.opt_moment_dtype, same tree (and, for DTensor
+    parameters, the same placements) as params; the step a 0-dim int32 on
+    the parameters' device."""
     mdt = torch_dtype(cfg.opt_moment_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=mdt, device=p.device)
+
+    def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=mdt)
+        return torch.zeros(p.shape, dtype=mdt, device=p.device)
     dev = leaves(params)[0].device
     return {"m": tree_map(zeros, params, is_leaf=torch.is_tensor),
             "v": tree_map(zeros, params, is_leaf=torch.is_tensor),
@@ -130,3 +137,10 @@ def adamw_update(params, grads, opt, hp: HParams, cfg: ModelConfig):
             p.copy_(p.to(f32).sub_(delta.mul_(lr)))
         opt["step"].copy_(step)
     return params, opt, {"grad_norm": gnorm, "lr": lr}
+
+
+def opt_specs(param_specs_tree, moment_specs_tree=None):
+    """PartitionSpec tree for the optimizer state, mirroring the params."""
+    mspec = (moment_specs_tree if moment_specs_tree is not None
+             else param_specs_tree)
+    return {"m": mspec, "v": mspec, "step": P()}

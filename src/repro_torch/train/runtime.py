@@ -14,6 +14,9 @@ checkpoint/restart, failure injection, straggler detection.
 
 A step's time runs from the launch of its work to a host sync of its
 loss. The parameters and moments are updated in place (`optimizer`).
+With `shd` on a mesh the state and the batches are DTensors of
+`step.train_shardings` and `Shardings.batch_spec`, and a resume restores
+onto that mesh.
 """
 
 from __future__ import annotations
@@ -56,17 +59,17 @@ class LoopState:
 
 
 class TrainLoop:
-    """The loop over `make_train_step(cfg, hp)` on `device` (None: the
-    card), batches from `make_batch`."""
+    """The loop over `make_train_step(cfg, hp, shd=shd)` on `device` (None:
+    the card), batches from `make_batch`."""
 
     def __init__(self, cfg: ModelConfig, shape: ShapeConfig, hp: HParams,
                  loop: LoopConfig, data: DataConfig = DataConfig(),
                  on_straggler: Callable[[int, float], None] | None = None,
-                 device=None):
+                 device=None, shd=None):
         self.device = resolve_device(device)
-        self.cfg, self.shape = cfg, shape
+        self.cfg, self.shape, self.shd = cfg, shape, shd
         self.hp, self.loop, self.data = hp, loop, data
-        self.train_step = make_train_step(cfg, hp)
+        self.train_step = make_train_step(cfg, hp, shd=shd)
         self.metrics_log: list[dict] = []
         self.straggler_steps: list[int] = []
         self._durations: list[float] = []
@@ -74,7 +77,7 @@ class TrainLoop:
 
     # ---------------------------------------------------------------- #
     def init_state(self, seed: int = 0) -> LoopState:
-        params = init_params(seed, self.cfg, self.device)
+        params = init_params(seed, self.cfg, self.device, self.shd)
         return LoopState(params, adamw_init(params, self.cfg), 0)
 
     def resume_or_init(self, seed: int = 0) -> LoopState:
@@ -106,7 +109,7 @@ class TrainLoop:
                     step == self.loop.fail_at_step:
                 raise InjectedFailure(f"injected failure at step {step}")
             batch = make_batch(self.cfg, self.shape, step, self.data,
-                               self.device)
+                               self.device, self.shd)
             t0 = time.perf_counter()
             params, opt, metrics = self.train_step(state.params, state.opt,
                                                    batch)

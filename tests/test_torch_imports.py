@@ -28,7 +28,9 @@ def test_importing_the_port_loads_no_jax():
             f"import {', '.join(SCRIPTS)}\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
-            "print(len(sys.modules)); assert not bad, bad\n")
+            "print(len(sys.modules)); assert not bad, bad\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized(), 'an import started a group'\n")
     env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -67,6 +69,7 @@ def test_entry_points_default_to_the_card():
     from repro_torch.examples import train_lm
     from repro_torch.launch import serve
     from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_smoke_mesh
     from repro_torch.train import (HParams, LoopConfig, TrainLoop,
                                    make_batch)
     from repro_torch.models import init_cache, init_params
@@ -109,6 +112,9 @@ def test_entry_points_default_to_the_card():
                  lambda: make_batch(cfg, ShapeConfig("t", 8, 1, "train"), 0),
                  lambda: launch_train.main(["--arch", "granite-3-8b",
                                             "--reduced"]),
+                 lambda: launch_train.main(["--arch", "granite-3-8b",
+                                            "--reduced", "--mesh"]),
+                 lambda: make_smoke_mesh(),
                  lambda: train_lm.main([])):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()

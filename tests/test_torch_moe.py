@@ -300,8 +300,8 @@ def _record_topi(monkeypatch, rec, trec):
                                ordered=True)
         return out
 
-    def port_hook(x, router, cfg):
-        out = port_dispatch(x, router, cfg)
+    def port_hook(x, router, cfg, *shd):
+        out = port_dispatch(x, router, cfg, *shd)
         trec.append(out[1].numpy())
         return out
 

@@ -216,8 +216,28 @@ def test_launch_train_runs_and_resumes(tmp_path, capsys):
     assert launch_train.main(argv + ["--steps", "6"]) == 0
     out = capsys.readouterr().out
     assert "resumed from step 4" in out and "done: 6 steps" in out
-    with pytest.raises(NotImplementedError, match="launch.mesh"):
-        launch_train.main(argv + ["--mesh"])
+
+
+def test_launch_train_mesh_matches_the_unmeshed_run(tmp_path):
+    """`--mesh` trains on a (1, 1) gloo mesh (a one-process group started
+    and ended by the launcher, in a subprocess): every logged loss, grad
+    norm and learning rate bit-equal to the run without it."""
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    logs = []
+    for extra in ([], ["--mesh"]):
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "granite-3-8b", "--reduced", "--device", "cpu", "--batch", "2",
+             "--seq", "16", "--steps", "3", "--log-every", "1",
+             "--ckpt-dir", str(tmp_path / f"c{len(extra)}")] + extra,
+            env=dict(os.environ, PYTHONPATH="src"), cwd=root,
+            capture_output=True, text=True, timeout=300)
+        assert r.returncode == 0, r.stderr[-3000:]
+        logs.append([json.loads(l) for l in r.stdout.splitlines()
+                     if l.startswith("{")])
+    assert len(logs[0]) == 3 and logs[0] == logs[1]
 
 
 def test_example_train_lm_runs(tmp_path, capsys):
