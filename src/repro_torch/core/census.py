@@ -30,8 +30,9 @@ Counting rules (the reference's, `hlo_analysis.py:381-558`):
 
   * FLOPs: a matrix product (`mm`, `bmm`, `addmm`, `baddbmm`, `_int_mm`,
     `convolution`, and a `sum` over a product whose two factors both span
-    the summed dims, which is how PyTorch spells a contraction) counts
-    2·M·N·K, into `dot_flops` too. An elementwise op counts one per
+    the summed dims, which is how PyTorch spells a contraction, save the
+    forms `_find_contractions` leaves to XLA's multiply and reduce)
+    counts 2·M·N·K, into `dot_flops` too. An elementwise op counts one per
     output element (`_ELEMENTWISE_FLOP_HINT` for the transcendentals), a
     reduction one per input element.
   * Bytes: views are free, and so are dtype converts and copies
@@ -63,8 +64,9 @@ Counting rules (the reference's, `hlo_analysis.py:381-558`):
     shards, once each, plus the `_c10d_functional` collectives its
     redistributions issue. The ops DTensor's sharding propagation runs on
     global-shape stand-ins (under its own fake mode, or under the trace's
-    inside `ShardingPropagator._propagate_tensor_meta_non_cached`) are not
-    the program's and are not recorded. Each
+    inside the methods `_PROPAGATION` lists: the output's shape, an op's
+    strategy through its decomposition) are not the program's and are
+    not recorded. Each
     collective fills `collectives` with `hlo_analysis.CollectiveInfo`'s
     fields (opcode, operand bytes, count 1, group size, group, op name)
     and `collective_bytes` with their sum.
@@ -397,29 +399,54 @@ def _local(t):
     return t._local_tensor if isinstance(t, DTensor) else t
 
 
+#: (module, class, method) of DTensor's sharding propagation that run an
+#: op on stand-ins of global shapes: the output's shape, and the strategy
+#: of an op without one of its own, through its decomposition (mamba's
+#: softplus backward)
+_PROPAGATION = (
+    ("torch.distributed.tensor._sharding_prop", "ShardingPropagator",
+     "_propagate_tensor_meta_non_cached"),
+    ("torch.distributed.tensor._decompositions", "DecompShardingStrategy",
+     "propagate_strategy"),
+)
+
+
 @contextlib.contextmanager
 def _unrecorded_propagation(rec: _Recorder):
-    """While DTensor's sharding propagation derives an op's output shape
-    (on stand-in tensors of global shapes, under the active fake mode),
-    `rec` records nothing: those ops are not the program's."""
-    from torch.distributed.tensor._sharding_prop import ShardingPropagator
-    name = "_propagate_tensor_meta_non_cached"
-    orig = getattr(ShardingPropagator, name, None)
-    if orig is None:
-        yield
-        return
+    """While DTensor's sharding propagation runs an op on stand-in tensors
+    of global shapes (under the active fake mode) to derive its output's
+    shape or its strategy, `rec` records nothing: those ops are not the
+    program's. A method this torch lacks is skipped."""
+    import importlib
+    patched = []
 
-    def wrapped(self, *args, **kwargs):
-        rec.propagating += 1
+    def wrap(fn):
+        def wrapped(*args, **kwargs):
+            rec.propagating += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                rec.propagating -= 1
+        return wrapped
+    for module, cls, name in _PROPAGATION:
         try:
-            return orig(self, *args, **kwargs)
-        finally:
-            rec.propagating -= 1
-    setattr(ShardingPropagator, name, wrapped)
+            owner = getattr(importlib.import_module(module), cls)
+        except (ImportError, AttributeError):
+            continue
+        raw = owner.__dict__.get(name)
+        if raw is None:
+            continue
+        # torch 2.11 has `propagate_strategy` as a static method
+        kind = type(raw) if isinstance(raw, (staticmethod, classmethod)) \
+            else None
+        fn = wrap(raw.__func__ if kind else raw)
+        setattr(owner, name, kind(fn) if kind else fn)
+        patched.append((owner, name, raw))
     try:
         yield
     finally:
-        setattr(ShardingPropagator, name, orig)
+        for owner, name, orig in patched:
+            setattr(owner, name, orig)
 
 
 def _record(fn, mode, flat, spec, tracing) -> Program:
@@ -540,10 +567,34 @@ def _reduced_dims(op: Op) -> list[int]:
     return sorted({d % nd for d in dims}) if nd else []
 
 
+def _has(operand: Value, out_shape: tuple, d: int) -> bool:
+    """True when `operand` has dim `d` of `out_shape` as its own (present
+    at the output's size, not a stride-0 expand of a wider one)."""
+    off = len(out_shape) - len(operand.shape)
+    if d < off:
+        return False
+    i = d - off
+    return operand.shape[i] == out_shape[d] and (
+        operand.stride[i] != 0 or out_shape[d] == 1)
+
+
+def _is_mask(v: Value) -> bool:
+    """True when `v` is a boolean (a comparison's result) read as numbers."""
+    return _chain_to(v).dtype == torch.bool
+
+
 def _find_contractions(prog: Program) -> None:
     """A `sum` over a product whose two factors both span the summed dims,
     the product feeding nothing else, is a contraction (XLA's
-    dot_general): the pair counts as one matrix product."""
+    dot_general): the pair counts as one matrix product. That is how the
+    port writes the reference's integer `@` (PrIM's GEMV and MLP, the
+    int32 plain GEMV, whose card has no integer matmul) and its row sums.
+    Three forms stay a multiply and a reduce, as XLA keeps them where the
+    reference writes the same sum (the MoE layer): a weighted sum over a
+    batch, one factor broadcast along a kept dim while the two share
+    another (the combine's gate weights, the flash-decoding merge); a
+    masked sum, one factor a boolean mask (the capacity positions'
+    one-hot); and a sum that keeps no dim (the load-balance loss)."""
     for op in prog.ops:
         if op.kind != "reduce" or op.name != "sum" or not op.ins:
             continue
@@ -558,9 +609,16 @@ def _find_contractions(prog: Program) -> None:
         a, b = mul.args[0], mul.args[1]
         if not (isinstance(a, Value) and isinstance(b, Value)):
             continue
-        if _spans(a, x.shape, dims) and _spans(b, x.shape, dims):
-            mul.kind, mul.opcode = "contraction-product", "dot"
-            op.kind, op.opcode = "contraction", "dot"
+        if not (_spans(a, x.shape, dims) and _spans(b, x.shape, dims)):
+            continue
+        kept = [d for d in range(len(x.shape)) if d not in dims]
+        shared = [d for d in kept
+                  if _has(a, x.shape, d) and _has(b, x.shape, d)]
+        if not kept or _is_mask(a) or _is_mask(b) \
+                or 0 < len(shared) < len(kept):
+            continue
+        mul.kind, mul.opcode = "contraction-product", "dot"
+        op.kind, op.opcode = "contraction", "dot"
 
 
 # ---------------------------------------------------------------------------

@@ -112,14 +112,28 @@ def attn_defs(cfg: ModelConfig, name: str) -> dict:
     return defs
 
 
-def _proj(x, w):
+def _proj(x, w, shd: Shardings = NO_SHARDING):
     """x (B,S,d) @ w (d, heads, hd) -> (B,S,heads,hd), one matmul. On a
-    mesh, a product sharded on its last dim over more devices than divide
-    the heads is gathered on that mesh dim before the split into heads
-    (DTensor cannot unflatten an uneven shard)."""
+    mesh, x keeps its batch rows and the product's heads x hd columns are
+    split over tp (w's FSDP dim gathered), where the heads divide the tp
+    axes or not: a head count that does not (GQA's K/V) would otherwise
+    leave every tp device the whole product. An output sharded on its
+    last dim over more devices than divide the heads is gathered on that
+    mesh dim before the split into heads (DTensor cannot unflatten an
+    uneven shard)."""
     d, nh, hd = w.shape
-    y = x @ _grad_as_input(w.to(x.dtype).reshape(d, nh * hd))
+    x = _rows(x, shd)
+    w = shd.lay(w.to(x.dtype).reshape(d, nh * hd), None, "tp")
+    y = x @ _grad_as_input(w)
     return _grad_as_input(_heads_whole(y, nh).unflatten(-1, (nh, hd)))
+
+
+def _rows(x, shd: Shardings, *last: str | None):
+    """An activation laid out as a product's left operand: its batch rows
+    over the batch axes, its middle dims whole, its last dims by `last`
+    (whole where not given)."""
+    kinds = ("batch",) + (None,) * (x.dim() - 1 - len(last)) + last
+    return shd.lay(x, *kinds)
 
 
 class _GradAsInput(torch.autograd.Function):
@@ -167,7 +181,7 @@ def _qkv(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING, *,
     """q, k, v of x. heads_tp: q heads over tp (train/prefill); a decode
     step keeps them replicated (flash-decoding: the cache's sequence is
     sharded instead)."""
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    q, k, v = (_proj(x, p[n], shd) for n in ("wq", "wk", "wv"))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -274,9 +288,13 @@ def cached_attention(q, k_cache, v_cache, index, cfg: ModelConfig,
 
 
 def attn_out(o, p, x_dtype, shd: Shardings = NO_SHARDING):
+    """The output projection: on a mesh the heads of o and wo over tp
+    (each device's product a partial sum), o's batch rows kept."""
     h, hd, d = p["wo"].shape
-    out = _grad_as_input(_heads_whole(o).flatten(-2)) @ _grad_as_input(
-        p["wo"].to(x_dtype).reshape(h * hd, d))
+    o = _rows(_heads_whole(o), shd, "tp", None)
+    wo = shd.lay(p["wo"].to(x_dtype), "tp", None, None)
+    out = _grad_as_input(o.flatten(-2)) @ _grad_as_input(
+        wo.reshape(h * hd, d))
     # seq-sharded output under SP: the tp-partial sum becomes a
     # reduce-scatter (Megatron sequence parallelism); no-op otherwise
     return shd.act(out, "batch", "seq", None)
@@ -304,13 +322,19 @@ def _act_fn(cfg: ModelConfig):
 
 
 def mlp_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
+    """The (gated) MLP; on a mesh each product on the batch rows, its
+    weight's ffn dim over tp."""
     act = _act_fn(cfg)
-    up = x @ p["wu"].to(x.dtype)
+    x = _rows(x, shd)
+    w = {n: shd.lay(p[n].to(x.dtype), *kinds) for n, kinds in
+         (("wu", (None, "tp")), ("wg", (None, "tp")), ("wd", ("tp", None)))
+         if n in p}
+    up = x @ w["wu"]
     if cfg.gated_mlp:
-        up = act(x @ p["wg"].to(x.dtype)) * up
+        up = act(x @ w["wg"]) * up
     else:
         up = act(up)
-    return shd.act(up @ p["wd"].to(x.dtype), "batch", "seq", None)
+    return shd.act(_rows(up, shd, "tp") @ w["wd"], "batch", "seq", None)
 
 
 # --------------------------------------------------------------------- #
@@ -371,7 +395,7 @@ def moe_dispatch(x, router, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     On a mesh everything after the router product runs on each device's
     batch rows (`Shardings.local`): the scatter is row-local."""
     rt = _router_dtype(x)
-    logits = x.to(rt) @ router.to(rt)
+    logits = _rows(x, shd).to(rt) @ router.to(rt)
     return shd.local(lambda x, logits: _dispatch_rows(x, logits, cfg),
                      x, logits, n_out=5)
 
@@ -530,14 +554,19 @@ def moe_expert_ffn(buf, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
         q8 = p["q8"] if "q8" in p else quantize_experts(p)
         return moe_expert_ffn_q8(buf, q8, cfg, shd)
     act = _act_fn(cfg)
-    up = shd.act(_expert_mm(buf, p["wu"]), "batch", None, None, "tp")
+    buf = _rows(buf, shd)
+    w = {n: shd.lay(p[n], *kinds) for n, kinds in
+         (("wu", ("experts", None, "tp")), ("wg", ("experts", None, "tp")),
+          ("wd", ("experts", "tp", None))) if n in p}
+    up = shd.act(_expert_mm(buf, w["wu"]), "batch", None, None, "tp")
     if cfg.gated_mlp:
-        gate = shd.act(act(_expert_mm(buf, p["wg"])), "batch", None, None,
+        gate = shd.act(act(_expert_mm(buf, w["wg"])), "batch", None, None,
                        "tp")
         up = gate * up
     else:
         up = act(up)
-    return shd.act(_expert_mm(up, p["wd"]), "batch", None, None, None)
+    return shd.act(_expert_mm(_rows(up, shd, "tp"), w["wd"]),
+                   "batch", None, None, None)
 
 
 def moe_combine(out_buf, topi, pos, w, dtype, shd: Shardings = NO_SHARDING):
@@ -577,7 +606,8 @@ def moe_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     if cfg.n_shared_experts:
         sh = mlp_forward(x, p["shared"], cfg, shd)
         rt = _router_dtype(x)
-        sg = _grad_as_input(torch.sigmoid(x.to(rt) @ p["shared_gate"].to(rt)))
+        sg = _grad_as_input(torch.sigmoid(
+            _rows(x, shd).to(rt) @ p["shared_gate"].to(rt)))
         y = y + (sh * sg.to(x.dtype) if cfg.name.startswith("qwen2-moe")
                  else sh)
     return shd.act(y, "batch", "seq", None), aux

@@ -27,11 +27,16 @@ on both mesh dims, pod-major, the order GSPMD splits it in.
 
 `Shardings.act` is the reference's activation constraint: a no-op without
 a mesh or on a plain tensor, else a `redistribute` of the DTensor to the
-spec's placements. `Shardings.local_with` (and `local`, its row-only
-form) runs work that is local along its sharded dims (the MoE scatter,
-the embedding gather, the recurrent scans) on each device's shards
-through `local_map`: DTensor refuses in-place updates that would change
-a placement and lacks rules for some of these ops.
+spec's placements. GSPMD also propagates each constraint back into the
+product that feeds it; DTensor picks a product's layout from its operands
+alone, so `Shardings.lay` gives each product's operands the layout GSPMD
+derives before the product runs (activations keep batch on "data", a
+weight's FSDP dim is gathered and its TP dim stays). `Shardings.local_with`
+(and `local`, its row-only form) runs work that is local along its
+sharded dims (the MoE scatter, the embedding gather, the recurrent scans)
+on each device's shards through `local_map`: DTensor refuses in-place
+updates that would change a placement and lacks rules for some of these
+ops.
 """
 
 from __future__ import annotations
@@ -206,6 +211,20 @@ class Shardings:
         return self.spec(tuple(shape), kinds, "batch")
 
     # -------------------------------------------------------------- #
+    def _placements(self, shape, kinds, name: str) -> tuple:
+        """Placements of the spec of `kinds`, its dropped rules taken back
+        out of `dropped` and returned beside them."""
+        n = len(self.dropped)
+        plc = placements(self.spec(tuple(shape), tuple(kinds), name),
+                         self.mesh)
+        drops = self.dropped[n:]
+        del self.dropped[n:]
+        return plc, drops
+
+    def _to(self, x, want: tuple):
+        return x if tuple(x.placements) == want else \
+            x.redistribute(self.mesh, want)
+
     def act(self, x, *kinds: str | None):
         """Constrain an activation's sharding: a no-op without a mesh or on
         a plain tensor, else `x` redistributed to the spec's placements.
@@ -213,14 +232,21 @@ class Shardings:
         `dropped` (the record of the parameter, input and cache specs)."""
         if self.mesh is None or not is_dtensor(x):
             return x
-        n = len(self.dropped)
-        spec = self.spec(tuple(x.shape), kinds, "act")
-        self.act_dropped.update(dict.fromkeys(self.dropped[n:]))
-        del self.dropped[n:]
-        want = placements(spec, self.mesh)
-        if tuple(x.placements) == want:
+        want, drops = self._placements(x.shape, kinds, "act")
+        self.act_dropped.update(dict.fromkeys(drops))
+        return self._to(x, want)
+
+    def lay(self, x, *kinds: str | None):
+        """`x` laid out by `kinds` as an operand of the product it feeds:
+        the layout GSPMD gives that operand from the constraints around
+        the product, where DTensor would pick one from the operands'
+        placements alone (it computed a product over the whole batch with
+        the contraction split over "data", following an FSDP weight). A
+        no-op without a mesh or on a plain tensor; a rule that does not
+        divide leaves its dim replicated and is not recorded."""
+        if self.mesh is None or not is_dtensor(x):
             return x
-        return x.redistribute(self.mesh, want)
+        return self._to(x, self._placements(x.shape, kinds, "lay")[0])
 
     def place(self, t: torch.Tensor, spec: PartitionSpec):
         """`t` (the whole tensor, on every rank) as a DTensor of `spec`."""
@@ -269,10 +295,7 @@ class Shardings:
         from torch.distributed.tensor.experimental import local_map
 
         def plc(shape, kinds):
-            n = len(self.dropped)
-            spec = self.spec(tuple(shape), tuple(kinds), "local")
-            del self.dropped[n:]
-            return list(placements(spec, self.mesh))
+            return list(self._placements(shape, kinds, "local")[0])
 
         full = [Replicate()] * self.mesh.ndim
         args = [DTensor.from_local(a, self.mesh, full, run_check=False)
@@ -288,14 +311,35 @@ class Shardings:
                          for i, p in enumerate(pl)] for pl in in_pl)
         out_pl = tuple(plc(shape, kinds) for shape, kinds in outs)
         # local_map reads a tuple as one entry per output
-        return local_map(fn, out_placements=out_pl if len(out_pl) > 1
-                         else out_pl[0], in_placements=in_pl,
-                         in_grad_placements=grad_pl,
-                         redistribute_inputs=True,
-                         device_mesh=self.mesh)(*args)
+        out = local_map(fn, out_placements=out_pl if len(out_pl) > 1
+                        else out_pl[0], in_placements=in_pl,
+                        in_grad_placements=grad_pl,
+                        redistribute_inputs=True,
+                        device_mesh=self.mesh)(*args)
+        return tuple(map(_dense, out)) if len(out_pl) > 1 else _dense(out)
 
 
 NO_SHARDING = Shardings(None)
+
+
+def _dense(x):
+    """A DTensor with the contiguous global strides of its shape (copied
+    where they differ). `local_map` gives its outputs the strides
+    `DTensor.from_local` computes, which are not contiguous across a
+    size-1 dim: a (B, 1, D) decode activation then cannot fold into one
+    `mm` against a weight, and `matmul` runs a `bmm` over the weight
+    expanded to the whole batch instead."""
+    if not is_dtensor(x) or x.stride() == _contiguous_strides(x.shape):
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _contiguous_strides(shape) -> tuple:
+    out, step = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(step)
+        step *= n
+    return tuple(reversed(out))
 
 
 @contextlib.contextmanager

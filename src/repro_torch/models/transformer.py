@@ -213,11 +213,11 @@ def _cross_attention(x, p, cfg: ModelConfig, cross_cache, encoder_out,
     there is a cache, written into it; without it they are read from the
     cache. One query (a decode step) runs the decode kernel over all
     `encoder_seq` cached rows, more run the flash kernel."""
-    q = L._proj(x, p["wq"])
+    q = L._proj(x, p["wq"], shd)
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
     if encoder_out is not None:
-        k, v = L._proj(encoder_out, p["wk"]), L._proj(encoder_out, p["wv"])
+        k, v = (L._proj(encoder_out, p[n], shd) for n in ("wk", "wv"))
         if "bk" in p:
             k = k + p["bk"].to(x.dtype)
             v = v + p["bv"].to(x.dtype)
@@ -506,8 +506,12 @@ def _forward(params, cfg: ModelConfig, shd: Shardings, *, tokens, embeds,
                                        attn_index, width, encoder_out, shd)
 
     x = _norm(x, params["final_norm"], cfg, shd)
-    wv = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    logits = shd.act(x @ wv.to(x.dtype).t(), "batch", None, "vocab")
+    # the unembed's vocab over tp, its FSDP dim gathered; a tied
+    # embedding keeps its width over tp and contracts it there
+    wk = (None, "tp") if cfg.tie_embeddings else ("vocab", None)
+    wv = shd.lay((params["embed"] if cfg.tie_embeddings
+                  else params["unembed"]).to(x.dtype), *wk)
+    logits = shd.act(L._rows(x, shd, wk[1]) @ wv.t(), "batch", None, "vocab")
     logits = mask_vocab_padding(logits, cfg)
 
     new_cache = None

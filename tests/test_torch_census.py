@@ -322,6 +322,37 @@ def test_contractions_written_as_a_sum_of_products():
         assert an.dot_flops == 0 and an.op_census["multiply"] == 1
 
 
+def test_moe_weighted_and_masked_sums_stay_reduces():
+    """The MoE layer's gate-weighted combine (a sum over the top-k slots
+    of the gathered expert rows times their broadcast gate weights) and
+    its capacity positions (a sum of a product with a one-hot mask) are
+    a multiply and a reduce in the reference's compiled HLO, and in the
+    census: no dot FLOPs on either side, at batch 1 too. A sum that keeps
+    no dim (the load-balance loss) is a reduce as well."""
+    from repro_torch.models import layers as TL
+    for b in (8, 1):
+        g = np.random.default_rng(b).standard_normal((b, 3, 2, 64),
+                                                     np.float32)
+        w = np.abs(g[..., 0])
+        jan = analyze_hlo(jax.jit(lambda g, w: jnp.sum(
+            g * w[..., None], axis=2)).lower(g, w).compile().as_text())
+        an = analyze_program(lambda g, w: (g * w[..., None]).sum(2),
+                             torch.from_numpy(g), torch.from_numpy(w))
+        assert jan.dot_flops == an.dot_flops == 0
+        assert an.op_census["multiply"] == 1 and an.op_census["reduce"] == 1
+    cfg = T_REDUCED["mixtral-8x7b"]
+    x = torch.randn(4, 6, cfg.d_model, generator=torch.Generator()
+                    .manual_seed(0))
+    logits = torch.randn(4, 6, cfg.n_experts)
+    an = analyze_program(lambda x, l: TL._dispatch_rows(x, l, cfg), x, logits)
+    assert an.dot_flops == 0
+    e = np.ones(8, np.float32)
+    assert analyze_hlo(jax.jit(lambda a, b: jnp.sum(a * b)).lower(e, e)
+                       .compile().as_text()).dot_flops == 0
+    assert analyze_program(lambda a, b: (a * b).sum(), torch.ones(8),
+                           torch.ones(8)).dot_flops == 0
+
+
 def test_data_dependent_programs_trace_for_real():
     """A program that reads values on the host raises in the fake trace
     and is then traced for real on CPU copies; its arguments stay as they
@@ -359,9 +390,10 @@ def test_ops_from_program_counts_elements():
 
 
 def test_from_program_unit_graph():
-    """Fine-grained graph of a program: the product, the maximum and the
-    sum of squares (a dot product of h with itself) become costed nodes
-    wired by data flow."""
+    """Fine-grained graph of a program: the product, then the maximum and
+    the sum of squares fused into one group (a sum that keeps no dim is a
+    multiply and a reduce, as XLA keeps the reference's twin), costed
+    nodes wired by data flow."""
     def f(x, w):
         h = torch.clamp_min(x @ w, 0)
         return torch.sum(h * h)
@@ -372,8 +404,7 @@ def test_from_program_unit_graph():
     assert dot.flops == 2 * 64 * 32 * 16
     assert g.is_chain and plan(g).method == "dp"
     assert g.input_bytes == 4 * (64 * 32 + 32 * 16)
-    assert [g.nodes[n].kind for n in g.topo_order()] == \
-        ["dot", "clamp", "dot"]
+    assert [g.nodes[n].kind for n in g.topo_order()] == ["dot", "fusion"]
 
 
 def test_node_from_fn_costs_a_stage():

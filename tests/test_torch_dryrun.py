@@ -3,15 +3,17 @@ reference's.
 
 * On a one-device mesh with Auto axes (the reference's `make_production_mesh`
   fails under jax 0.9.0, ROADMAP F8), the reference's `lower_cell` and
-  the port's, at REDUCED granite-3-8b and whisper-tiny, decode, prefill
-  and train (`ShapeConfig("t", 64, 2, kind)`): dot FLOPs equal exactly
+  the port's, at REDUCED granite-3-8b, mixtral-8x7b (an MoE census:
+  its combine and capacity positions are reduces on both sides) and
+  whisper-tiny, decode, prefill and train (`ShapeConfig("t", 64, 2, kind)`): dot FLOPs equal exactly
   for prefill and decode, the train step's within the band of
   tests/test_torch_suitability.py's train row; `dominant`,
   `resident_bytes_per_device_est`, model FLOPs and model bytes equal.
   The port's side runs over a fake process group of one rank.
 * (tests/test_torch_dryrun_cli.py holds the twin of tests/test_dryrun.py.)
 * On a (2, 4) fake mesh at REDUCED size (a subprocess): 8 x the
-  per-device dot FLOPs >= the one-device program's, the train step has
+  per-device dot FLOPs >= the one-device program's
+  (tests/test_torch_dryrun_mesh_parity.py holds them to the reference's), the train step has
   collectives, and the counts extrapolated from one and two remat groups
   equal the full-depth trace's on a 6-block granite.
 """
@@ -34,7 +36,7 @@ from repro_torch.launch import dryrun as tdry
 from test_torch_suitability import BAND, TRAIN_DOT_RATIO
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("granite-3-8b", "whisper-tiny")
+ARCHS = ("granite-3-8b", "mixtral-8x7b", "whisper-tiny")
 KINDS = ("decode", "prefill", "train")
 
 

@@ -3,7 +3,10 @@ layers, RWKV-6) on a (2, 4) fake mesh, in a subprocess (a process group
 is process-wide): REDUCED jamba-1.5-large-398b and rwkv6-3b, `lower_cell`
 of the train and prefill steps, status `ok` on 8 chips with positive
 per-device dot FLOPs, the train steps with collectives, and for prefill 8
-x the per-device dot FLOPs >= the one-device program's. (The full-size
+x the per-device dot FLOPs >= the one-device program's. No recorded op
+computes on the whole batch of 8: the ops DTensor runs on global-shape
+stand-ins to find a strategy through an op's decomposition (mamba's
+softplus backward) are not the program's. (The full-size
 cells trace in minutes; a one-device trace of jamba's train step would
 take this file past a minute, so train is held on the mesh alone.)
 tests/test_torch_mesh_scan.py runs the same archs on 2 gloo ranks.
@@ -36,6 +39,11 @@ _FAKE_MESH = textwrap.dedent("""
     def keep(prog):
         c = orig(prog)
         dots["last"] = c["dot_flops"]
+        # arithmetic on the whole batch of 8: none is the program's
+        dots["whole"] = sum(
+            op.name in ("exp", "mul", "add") and any(
+                len(v.shape) >= 3 and v.shape[0] == 8 for v in op.outs)
+            for op in prog.ops)
         return c
     D._counts = keep
     out = {}
@@ -43,13 +51,13 @@ _FAKE_MESH = textwrap.dedent("""
         for kind in ("train", "prefill"):
             shape = ShapeConfig("t", 16, 8, kind)
             rec, _ = D.lower_cell(REDUCED[arch], shape, mesh)
-            d8, d1 = dots["last"], None
+            d8, d1, whole = dots["last"], None, dots["whole"]
             if kind == "prefill":
                 rec1, _ = D.lower_cell(REDUCED[arch], shape, one)
                 d1 = dots["last"]
             out[f"{arch}/{kind}"] = [rec["status"], d8, d1, rec["n_chips"],
                                      rec["collective_bytes_per_device"],
-                                     len(rec["collectives"])]
+                                     len(rec["collectives"]), whole]
     print(json.dumps(out))
 """ % (ARCHS,))
 
@@ -60,8 +68,9 @@ def test_scan_cells_on_a_2x4_fake_mesh():
     assert r.returncode == 0, r.stderr[-3000:]
     out = json.loads(r.stdout.strip().splitlines()[-1])
     assert len(out) == 2 * len(ARCHS)
-    for cell, (status, d8, d1, chips, coll, n_coll) in out.items():
+    for cell, (status, d8, d1, chips, coll, n_coll, whole) in out.items():
         assert status == "ok" and chips == 8 and d8 > 0, (cell, out[cell])
+        assert whole == 0, (cell, out[cell])
         if cell.endswith("/train"):
             assert coll > 0 and n_coll > 0, (cell, out[cell])
         else:

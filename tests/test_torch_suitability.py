@@ -11,7 +11,9 @@ What is held:
     equal to `chip_smoke.SUITABILITY_VERDICTS`, which phase 13 holds the
     card's run to;
   * the matrix-product FLOPs of the prefill and decode steps equal
-    exactly, the train step's within BAND of the ratio stated below;
+    exactly, the train step's within BAND of the ratio stated below; the
+    same of REDUCED mixtral-8x7b's three steps (no bench row: an MoE
+    census held to the reference's);
   * OI and the element count of each op class (summed over dtype
     classes), port over reference, within a factor BAND of the ratio
     measured on this tree (CPU; jax 0.9.0, torch 2.13), stated below
@@ -150,9 +152,9 @@ def _j_prim(name):
 TRAIN_DOT_RATIO = 1.0175
 
 
-def _j_lm(step):
+def _j_lm(step, arch="granite-3-8b"):
     key = jax.random.PRNGKey(0)
-    cfg, shd = REDUCED["granite-3-8b"], Shardings(None)
+    cfg, shd = REDUCED[arch], Shardings(None)
     params = init_params(key, cfg, shd)
     if step == "train":
         batch = make_batch(cfg, ShapeConfig("b", 64, 4, "train"), 0,
@@ -272,6 +274,40 @@ def test_lm_dot_flops_equal_exactly(name, reference, port):
 def test_train_dot_flops_within_their_band(reference, port):
     r = port["train"][0].dot_flops / reference["train"][0].dot_flops
     assert TRAIN_DOT_RATIO / BAND <= r <= TRAIN_DOT_RATIO * BAND, r
+
+
+@pytest.fixture(scope="module")
+def moe_steps():
+    """step -> (reference's dot FLOPs, the census's) of REDUCED
+    mixtral-8x7b's LM programs, built as the bench builds granite's: the
+    routed MoE layer's products (router, experts) are dots on both sides,
+    its gate-weighted combine and capacity positions a multiply and a
+    reduce on both."""
+    arch = sb.LM_ARCH
+    sb.LM_ARCH = "mixtral-8x7b"
+    try:
+        port = sb.lm_programs("cpu")
+    finally:
+        sb.LM_ARCH = arch
+    out = {}
+    for step in LM_ROWS:
+        fn, args = _j_lm(step, "mixtral-8x7b")
+        text = jax.jit(fn).lower(*args).compile().as_text()
+        out[step] = (analyze_hlo(text, trip_count_fallback=4).dot_flops,
+                     analyze_program(*port[step][:1], *port[step][1])
+                     .dot_flops)
+    return out
+
+
+@pytest.mark.parametrize("step", ["prefill", "decode"])
+def test_moe_lm_dot_flops_equal_exactly(step, moe_steps):
+    want, got = moe_steps[step]
+    assert got == want > 0
+
+
+def test_moe_train_dot_flops_within_their_band(moe_steps):
+    want, got = moe_steps["train"]
+    assert TRAIN_DOT_RATIO / BAND <= got / want <= TRAIN_DOT_RATIO * BAND
 
 
 def test_entry_point_prints_the_verdicts():
