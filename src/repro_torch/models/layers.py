@@ -120,10 +120,12 @@ def _proj(x, w, shd: Shardings = NO_SHARDING):
     leave every tp device the whole product. An output sharded on its
     last dim over more devices than divide the heads is gathered on that
     mesh dim before the split into heads (DTensor cannot unflatten an
-    uneven shard)."""
+    uneven shard). Where the rows do not split over the batch axes, the
+    contraction runs over w's FSDP shard (`Shardings.stationary`)."""
     d, nh, hd = w.shape
-    x = _rows(x, shd)
-    w = shd.lay(w.to(x.dtype).reshape(d, nh * hd), None, "tp")
+    c = shd.stationary(x.shape[0])
+    x = _rows(x, shd, c)
+    w = shd.lay(w.to(x.dtype).reshape(d, nh * hd), c, "tp")
     y = x @ _grad_as_input(w)
     return _grad_as_input(_heads_whole(y, nh).unflatten(-1, (nh, hd)))
 
@@ -323,11 +325,13 @@ def _act_fn(cfg: ModelConfig):
 
 def mlp_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     """The (gated) MLP; on a mesh each product on the batch rows, its
-    weight's ffn dim over tp."""
+    weight's ffn dim over tp (the up and gate contractions over their
+    FSDP shard where the rows do not split: `Shardings.stationary`)."""
     act = _act_fn(cfg)
-    x = _rows(x, shd)
+    c = shd.stationary(x.shape[0])
+    x = _rows(x, shd, c)
     w = {n: shd.lay(p[n].to(x.dtype), *kinds) for n, kinds in
-         (("wu", (None, "tp")), ("wg", (None, "tp")), ("wd", ("tp", None)))
+         (("wu", (c, "tp")), ("wg", (c, "tp")), ("wd", ("tp", None)))
          if n in p}
     up = x @ w["wu"]
     if cfg.gated_mlp:
@@ -394,10 +398,18 @@ def moe_dispatch(x, router, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     zeros at C - 1, so the accumulating scatter is exact in any order.
     On a mesh everything after the router product runs on each device's
     batch rows (`Shardings.local`): the scatter is row-local."""
-    rt = _router_dtype(x)
-    logits = _rows(x, shd).to(rt) @ router.to(rt)
+    logits = _gate(x, router, shd)
     return shd.local(lambda x, logits: _dispatch_rows(x, logits, cfg),
                      x, logits, n_out=5)
+
+
+def _gate(x, w, shd: Shardings = NO_SHARDING):
+    """x @ w in the router's type (the router, the shared experts' gate):
+    on a mesh x keeps its batch rows, and where they do not split the
+    contraction runs over "data" (`Shardings.stationary`)."""
+    rt = _router_dtype(x)
+    c = shd.stationary(x.shape[0])
+    return _rows(x, shd, c).to(rt) @ shd.lay(w.to(rt), c, None)
 
 
 def _dispatch_rows(x, logits, cfg: ModelConfig):
@@ -549,15 +561,19 @@ def moe_expert_ffn(buf, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     caller quantized the weights ahead (the serving engine does, once),
     else on weights quantized here; both give the same integers. On a
     mesh the expert products' outputs are held tp-sharded, as the
-    reference's."""
+    reference's; where the rows do not split over the batch axes, the
+    weights keep their FSDP shards (`Shardings.stationary`): the up and
+    gate products contract over "data", the down product's output is
+    split over it."""
     if cfg.quant == "int8":
         q8 = p["q8"] if "q8" in p else quantize_experts(p)
         return moe_expert_ffn_q8(buf, q8, cfg, shd)
     act = _act_fn(cfg)
-    buf = _rows(buf, shd)
+    c = shd.stationary(buf.shape[0])
+    buf = _rows(buf, shd, c)
     w = {n: shd.lay(p[n], *kinds) for n, kinds in
-         (("wu", ("experts", None, "tp")), ("wg", ("experts", None, "tp")),
-          ("wd", ("experts", "tp", None))) if n in p}
+         (("wu", ("experts", c, "tp")), ("wg", ("experts", c, "tp")),
+          ("wd", ("experts", "tp", c))) if n in p}
     up = shd.act(_expert_mm(buf, w["wu"]), "batch", None, None, "tp")
     if cfg.gated_mlp:
         gate = shd.act(act(_expert_mm(buf, w["wg"])), "batch", None, None,
@@ -605,9 +621,7 @@ def moe_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
 
     if cfg.n_shared_experts:
         sh = mlp_forward(x, p["shared"], cfg, shd)
-        rt = _router_dtype(x)
-        sg = _grad_as_input(torch.sigmoid(
-            _rows(x, shd).to(rt) @ p["shared_gate"].to(rt)))
+        sg = _grad_as_input(torch.sigmoid(_gate(x, p["shared_gate"], shd)))
         y = y + (sh * sg.to(x.dtype) if cfg.name.startswith("qwen2-moe")
                  else sh)
     return shd.act(y, "batch", "seq", None), aux

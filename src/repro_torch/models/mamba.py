@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import layers as L
 from .config import ModelConfig
 from .sharding import NO_SHARDING, ParamDef, Shardings
 
@@ -94,7 +95,14 @@ def mamba_forward(x, p, cfg: ModelConfig, state=None,
     decoding = state is not None and s == 1
     acc = torch.promote_types(x.dtype, torch.float32)
 
-    xin, z = (x @ p["in_proj"].to(x.dtype)).chunk(2, dim=-1)
+    # on a mesh each product's operands are laid out as GSPMD lays them:
+    # in_proj's columns, x_proj's and out_proj's contractions over tp, on
+    # the batch rows (in_proj contracting over "data" where they do not
+    # split: `Shardings.stationary`); in_proj's gradient comes back
+    # column-sharded, as its output
+    c = shd.stationary(b)
+    xz = L._rows(x, shd, c) @ shd.lay(p["in_proj"].to(x.dtype), c, "tp")
+    xin, z = L._grad_as_input(xz).chunk(2, dim=-1)
     xin = shd.act(xin, "batch", None, "tp")
     conv_state = state["conv"] if state is not None else None
     xin, new_conv = _causal_conv(xin, p["conv_w"].to(x.dtype),
@@ -102,8 +110,12 @@ def mamba_forward(x, p, cfg: ModelConfig, state=None,
     xin = F.silu(xin)
 
     # the projection contracts the tp-sharded inner dim: its small output
-    # (dt_rank + 2 d_state per token) is reduced to a replica at once
-    dbc = shd.act(xin @ p["x_proj"].to(x.dtype), "batch", None, None)
+    # (dt_rank + 2 d_state per token) is reduced to a replica at once, and
+    # so is its gradient (a partial sum where dt, B and C meet tp-sharded
+    # operands) before the product's backward
+    x_proj = shd.lay(p["x_proj"].to(x.dtype), "tp", None)
+    dbc = L._grad_as_input(shd.act(L._rows(xin, shd, "tp") @ x_proj,
+                                   "batch", None, None))
     dt, B_, C_ = dbc.split([r, ds, ds], dim=-1)
     dt = F.softplus((dt @ p["dt_proj"].to(x.dtype)).to(acc)
                     + p["dt_bias"].to(acc))
@@ -144,7 +156,9 @@ def mamba_forward(x, p, cfg: ModelConfig, state=None,
     y = shd.act(y, "batch", None, "tp")
     y = y + xin_f * p["D"].to(acc)
     y = y.to(x.dtype) * F.silu(z)
-    out = shd.act(y @ p["out_proj"].to(x.dtype), "batch", "seq", None)
+    out = shd.act(L._rows(y, shd, "tp")
+                  @ shd.lay(p["out_proj"].to(x.dtype), "tp", None),
+                  "batch", "seq", None)
     return out, {"h": h_final, "conv": new_conv}
 
 

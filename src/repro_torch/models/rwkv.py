@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from . import layers as L
 from .config import ModelConfig
 from .sharding import NO_SHARDING, ParamDef, Shardings
 
@@ -111,37 +112,62 @@ def _token_shift(x, shift_state):
     return torch.cat([shift_state.to(x.dtype), x[:, :-1]], dim=1)
 
 
+def _mm(x, w, shd: Shardings, kinds: tuple):
+    """x @ w as GSPMD runs the block's products on a mesh: x keeps its
+    batch rows, and `kinds` are the logical kinds of w's two dims (the
+    first also x's last). Under sequence parallelism (training) x stays
+    on its sequence shard and w is gathered whole instead."""
+    if shd.logical("seq"):
+        seq = ("batch", "seq", None)
+        return shd.local_with(torch.matmul, (x, w), (seq, (None, None)),
+                              [(x.shape[:-1] + w.shape[-1:], seq)])
+    return L._rows(x, shd, kinds[0]) @ shd.lay(w, *kinds)
+
+
 def rwkv_time_mix(x, p, cfg: ModelConfig, state,
                   shd: Shardings = NO_SHARDING):
     """Returns (out, {"wkv", "shift_tm"}). The routes: chunked iff
-    S > 1 and S % WKV_CHUNK == 0, else per token."""
+    S > 1 and S % WKV_CHUNK == 0, else per token. On a mesh the
+    products run as GSPMD runs them (`_mm`): in serving, the token-shift
+    LoRA, the decay's first product and the input-dim-sharded
+    projections contract over tp, the LoRA's mix comes out sharded on D
+    over tp; wo's columns stay over tp (GSPMD gathers wo whole and
+    computes all of it on each device); in training each runs on the
+    sequence shard. r, k and v reach the recurrence's heads in the
+    model's dtype."""
     b, s, d = x.shape
     h, hs = cfg.n_rwkv_heads, cfg.rwkv_head_size
     lm = cfg.rwkv_mix_lora
     acc = torch.promote_types(x.dtype, torch.float32)
+    tp_in = ("tp", None)
 
     xx = _token_shift(x, state["shift_tm"]) - x
     xxx = x + xx * p["maa_x"].to(x.dtype)
-    lora = torch.tanh(xxx @ p["maa_w1"].to(x.dtype))          # (B,S,5*lm)
+    lora = torch.tanh(_mm(xxx, p["maa_w1"].to(x.dtype), shd,
+                          tp_in))                             # (B,S,5*lm)
     lora = lora.reshape(b, s, 5, lm).permute(2, 0, 1, 3)      # (5,B,S,lm)
-    mix = torch.einsum("fbsl,fld->fbsd", lora, p["maa_w2"].to(x.dtype))
+    mix = _lora_mix(lora, p["maa_w2"].to(x.dtype), shd)
     mix = mix + p["maa"].to(x.dtype)[:, None, None, :]
     xw, xk, xv, xr, xg = [x + xx * mix[i] for i in range(5)]
 
-    r = xr @ p["wr"].to(x.dtype)
-    k = xk @ p["wk"].to(x.dtype)
-    v = xv @ p["wv"].to(x.dtype)
-    g = F.silu(xg @ p["wg"].to(x.dtype))
+    r = _mm(xr, p["wr"].to(x.dtype), shd, tp_in)
+    k = _mm(xk, p["wk"].to(x.dtype), shd, tp_in)
+    v = _mm(xv, p["wv"].to(x.dtype), shd, tp_in)
+    g = F.silu(_mm(xg, p["wg"].to(x.dtype), shd, tp_in))
 
-    dec = p["decay"].to(acc) + (
-        torch.tanh(xw @ p["decay_w1"].to(x.dtype)).to(acc)
-        @ p["decay_w2"].to(acc))
+    dec = p["decay"].to(acc) + _mm(
+        torch.tanh(_mm(xw, p["decay_w1"].to(x.dtype), shd, tp_in)).to(acc),
+        p["decay_w2"].to(acc), shd, (None, None))
     # per-token decay clamped to >= e^-8 on both routes: it keeps the
     # chunked form's exponents in range, and decode equal to the full
     # forward
     w = torch.exp(-torch.clamp(torch.exp(dec), max=8.0))     # [e^-8, 1)
 
-    rh, kh, vh = (t.reshape(b, s, h, hs).to(acc) for t in (r, k, v))
+    # local along batch and heads: on a mesh each device runs the
+    # recurrence of its own rows (and heads, where tp divides them)
+    heads = ("batch", None, "tp", None)
+    rh, kh, vh = (shd.lay(t.reshape(b, s, h, hs), *heads).to(acc)
+                  for t in (r, k, v))
     wh = w.reshape(b, s, h, hs)
     u = p["faaaa"].to(acc)
     S0 = state["wkv"].to(acc)
@@ -149,9 +175,6 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, state,
         route = lambda *a: _wkv_chunked(*a, WKV_CHUNK)
     else:
         route = _wkv_per_token
-    # local along batch and heads: on a mesh each device runs the
-    # recurrence of its own rows (and heads, where tp divides them)
-    heads = ("batch", None, "tp", None)
     S_final, o = shd.local_with(
         route, (rh, kh, vh, wh, u, S0),
         (heads, heads, heads, heads, ("tp", None),
@@ -165,21 +188,38 @@ def rwkv_time_mix(x, p, cfg: ModelConfig, state,
     var = (o - mu).square().mean(-1, keepdim=True)
     o = (o - mu) * torch.rsqrt(var + 64e-5)
     o = o.reshape(b, s, d) * p["ln_x"].to(acc)
-    out = shd.act(o.to(x.dtype) * g, "batch", None, None) \
-        @ p["wo"].to(x.dtype)
-    out = shd.act(out, "batch", "seq", None)
+    out = shd.act(_mm(o.to(x.dtype) * g, p["wo"].to(x.dtype), shd,
+                      (None, "tp")), "batch", "seq", None)
     return out, {"wkv": S_final, "shift_tm": x[:, -1:]}
+
+
+def _lora_mix(lora, w2, shd: Shardings):
+    """The token-shift LoRA's second product, (5,B,S,lm) x (5,lm,D): in
+    serving its D over tp, in training on the sequence shard."""
+    mix = lambda a, w: torch.einsum("fbsl,fld->fbsd", a, w)
+    if shd.logical("seq"):
+        seq = (None, "batch", "seq", None)
+        return shd.local_with(mix, (lora, w2), (seq, (None, None, None)),
+                              [(lora.shape[:-1] + w2.shape[-1:], seq)])
+    return mix(shd.lay(lora, None, "batch", None, None),
+               shd.lay(w2, None, None, "tp"))
 
 
 def rwkv_channel_mix(x, p, cfg: ModelConfig, state,
                      shd: Shardings = NO_SHARDING):
-    """Returns (out, {"shift_cm"})."""
+    """Returns (out, {"shift_cm"}). On a mesh in serving, cm_wk's and
+    cm_wv's ffn dim over tp and cm_wr's contraction over tp; where the
+    rows do not split, cm_wk contracts over its FSDP shard and cm_wv's
+    output is split over it (`Shardings.stationary`); in training each
+    product runs on the sequence shard (`_mm`)."""
+    c = shd.stationary(x.shape[0])
     xx = _token_shift(x, state["shift_cm"]) - x
     xk = x + xx * p["cm_maa_k"].to(x.dtype)
     xr = x + xx * p["cm_maa_r"].to(x.dtype)
-    k = torch.square(F.relu(xk @ p["cm_wk"].to(x.dtype)))
-    kv = k @ p["cm_wv"].to(x.dtype)
-    r = torch.sigmoid(xr @ p["cm_wr"].to(x.dtype))
+    k = torch.square(F.relu(_mm(xk, p["cm_wk"].to(x.dtype), shd,
+                                (c, "tp"))))
+    kv = _mm(k, p["cm_wv"].to(x.dtype), shd, ("tp", c))
+    r = torch.sigmoid(_mm(xr, p["cm_wr"].to(x.dtype), shd, ("tp", None)))
     return shd.act(r * kv, "batch", "seq", None), {"shift_cm": x[:, -1:]}
 
 

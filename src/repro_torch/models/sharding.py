@@ -31,12 +31,13 @@ spec's placements. GSPMD also propagates each constraint back into the
 product that feeds it; DTensor picks a product's layout from its operands
 alone, so `Shardings.lay` gives each product's operands the layout GSPMD
 derives before the product runs (activations keep batch on "data", a
-weight's FSDP dim is gathered and its TP dim stays). `Shardings.local_with`
-(and `local`, its row-only form) runs work that is local along its
-sharded dims (the MoE scatter, the embedding gather, the recurrent scans)
-on each device's shards through `local_map`: DTensor refuses in-place
-updates that would change a placement and lacks rules for some of these
-ops.
+weight's FSDP dim is gathered and its TP dim stays; where the batch does
+not divide "data", `Shardings.stationary`, the contraction runs over the
+FSDP shard instead). `Shardings.local_with` (and `local`, its row-only
+form) runs work that is local along its sharded dims (the MoE scatter,
+the embedding gather, the recurrent scans) on each device's shards
+through `local_map`: DTensor refuses in-place updates that would change
+a placement and lacks rules for some of these ops.
 """
 
 from __future__ import annotations
@@ -166,6 +167,19 @@ class Shardings:
     def tp_size(self) -> int:
         """Devices the tensor-parallel axes span (1 without a mesh)."""
         return self._axes_size(self.logical("tp"))
+
+    def stationary(self, rows: int) -> str | None:
+        """The kind of a product's contraction over the model width when
+        its activation has `rows` batch rows: "fsdp" where the batch axes
+        do not divide them (long_500k's global batch of 1), else None.
+        GSPMD then leaves each weight's FSDP shard in place and splits
+        the contraction over "data" against it, the partial sums reduced
+        after, where it would otherwise gather the weight and run the
+        same token's product on every "data" device."""
+        axes = self.logical("batch")
+        if self.mesh is None or rows % self._axes_size(axes) == 0:
+            return None
+        return "fsdp"
 
     def spec(self, dims: tuple[int, ...], kinds: tuple[str | None, ...],
              name: str = "?") -> PartitionSpec:

@@ -506,9 +506,11 @@ def _forward(params, cfg: ModelConfig, shd: Shardings, *, tokens, embeds,
                                        attn_index, width, encoder_out, shd)
 
     x = _norm(x, params["final_norm"], cfg, shd)
-    # the unembed's vocab over tp, its FSDP dim gathered; a tied
-    # embedding keeps its width over tp and contracts it there
-    wk = (None, "tp") if cfg.tie_embeddings else ("vocab", None)
+    # the unembed's vocab over tp, its FSDP dim gathered (kept where the
+    # rows do not split: `Shardings.stationary`); a tied embedding keeps
+    # its width over tp and contracts it there
+    wk = ((None, "tp") if cfg.tie_embeddings
+          else ("vocab", shd.stationary(x.shape[0])))
     wv = shd.lay((params["embed"] if cfg.tie_embeddings
                   else params["unembed"]).to(x.dtype), *wk)
     logits = shd.act(L._rows(x, shd, wk[1]) @ wv.t(), "batch", None, "vocab")

@@ -10,7 +10,9 @@ reference's.
   tests/test_torch_suitability.py's train row; `dominant`,
   `resident_bytes_per_device_est`, model FLOPs and model bytes equal.
   The port's side runs over a fake process group of one rank.
-* (tests/test_torch_dryrun_cli.py holds the twin of tests/test_dryrun.py.)
+* (tests/test_torch_dryrun_cli.py holds the twin of tests/test_dryrun.py;
+  tests/test_torch_dryrun_zoo.py the same three checks for the other
+  seven archs, through `reference_cells`, `port_cells` and `check_*`.)
 * On a (2, 4) fake mesh at REDUCED size (a subprocess): 8 x the
   per-device dot FLOPs >= the one-device program's
   (tests/test_torch_dryrun_mesh_parity.py holds them to the reference's), the train step has
@@ -54,8 +56,9 @@ def _reference_dryrun():
     return dryrun
 
 
-@pytest.fixture(scope="module")
-def reference():
+def reference_cells(archs=ARCHS):
+    """{(arch, kind): (record, report, analysis)} of the reference's
+    `lower_cell` on a one-device `Auto` mesh."""
     jdry = _reference_dryrun()
     from repro.configs import REDUCED
     from repro.configs.shapes import ShapeConfig
@@ -70,7 +73,7 @@ def reference():
     jdry.analyze_hlo = keep
     out = {}
     try:
-        for arch in ARCHS:
+        for arch in archs:
             for kind in KINDS:
                 rec, rep = jdry.lower_cell(REDUCED[arch],
                                            ShapeConfig("t", 64, 2, kind),
@@ -81,8 +84,8 @@ def reference():
     return out
 
 
-@pytest.fixture(scope="module")
-def port():
+def port_cells(archs=ARCHS):
+    """The port's twin of `reference_cells`, over a fake one-rank group."""
     from torch.distributed.device_mesh import init_device_mesh
     from torch.testing._internal.distributed.fake_pg import FakeStore
     started = not dist.is_initialized()
@@ -100,7 +103,7 @@ def port():
     try:
         mesh = init_device_mesh("cpu", (1, 1),
                                 mesh_dim_names=("data", "model"))
-        for arch in ARCHS:
+        for arch in archs:
             for kind in KINDS:
                 rec, rep = tdry.lower_cell(T_REDUCED[arch],
                                            TShape("t", 64, 2, kind), mesh)
@@ -112,22 +115,27 @@ def port():
     return out
 
 
-@pytest.mark.parametrize("kind", ["decode", "prefill"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_serving_dot_flops_equal_exactly(arch, kind, reference, port):
+@pytest.fixture(scope="module")
+def reference():
+    return reference_cells()
+
+
+@pytest.fixture(scope="module")
+def port():
+    return port_cells()
+
+
+def check_serving(arch, kind, reference, port):
     assert port[arch, kind][2].dot_flops == reference[arch, kind][2].dot_flops
 
 
-def test_train_dot_flops_within_the_suitability_band(reference, port):
-    for arch in ARCHS:
-        r = port[arch, "train"][2].dot_flops / \
-            reference[arch, "train"][2].dot_flops
-        assert TRAIN_DOT_RATIO / BAND <= r <= TRAIN_DOT_RATIO * BAND, (arch, r)
+def check_train_band(arch, reference, port):
+    r = port[arch, "train"][2].dot_flops / \
+        reference[arch, "train"][2].dot_flops
+    assert TRAIN_DOT_RATIO / BAND <= r <= TRAIN_DOT_RATIO * BAND, (arch, r)
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("arch", ARCHS)
-def test_record_terms_equal_the_reference(arch, kind, reference, port):
+def check_record_terms(arch, kind, reference, port):
     jrec, jrep, _ = reference[arch, kind]
     trec, trep, _ = port[arch, kind]
     assert set(trec) == set(jrec)
@@ -145,6 +153,23 @@ def test_record_terms_equal_the_reference(arch, kind, reference, port):
     assert set(mem) <= set(jrec["memory_analysis"])
     assert mem["argument_size_in_bytes"] > 0 and \
         mem["temp_size_in_bytes"] > 0
+
+
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_serving_dot_flops_equal_exactly(arch, kind, reference, port):
+    check_serving(arch, kind, reference, port)
+
+
+def test_train_dot_flops_within_the_suitability_band(reference, port):
+    for arch in ARCHS:
+        check_train_band(arch, reference, port)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_record_terms_equal_the_reference(arch, kind, reference, port):
+    check_record_terms(arch, kind, reference, port)
 
 
 _SHARDED = textwrap.dedent("""

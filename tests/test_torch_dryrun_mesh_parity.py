@@ -15,10 +15,10 @@ What is held:
     products named in `NAMED`, exactly. Each entry names the op, the
     reference's product (its operand shapes, how many, their FLOPs in
     all, checked against the reference's list) and the port's for the
-    same work, and its cause: every one is work GSPMD computes whole on
-    each "model" device where the operands' layout does not call for it;
-    the port splits it over "model" as its weights are split, and
-    gathers the result;
+    same work, smaller, and its cause: every one is work GSPMD computes
+    whole on each "model" device where the operands' layout does not
+    call for it; the port splits it over "model" as its weights are
+    split, and gathers the result;
   * every matrix product of a decode cell runs on the batch shard (B/2
     rows), none over the whole batch;
   * train: the port's dot FLOPs over the reference's less its named
@@ -27,8 +27,11 @@ What is held:
   * the roofline's dominant term equals the reference's, save the cells
     in `DOMINANT_DIFFERS`, where it must differ as stated.
 
+`_run_both` (any cells, a batch other than 8 as "arch/kind@batch") and
+the `check_*` functions hold the other seven archs and the batch-1
+decode cells in tests/test_torch_dryrun_mesh_parity_zoo.py.
 `python tests/test_torch_dryrun_mesh_parity.py` prints the cells side by
-side: dot FLOPs, HBM bytes, collective bytes by kind, dominant term.
+side: dot FLOPs, collective bytes by kind, roofline terms, dominant term.
 """
 
 import dataclasses
@@ -114,28 +117,30 @@ _REFERENCE = textwrap.dedent("""
         return orig(text, **kw)
     D.analyze_hlo = keep
     out = {}
-    for arch in sys.argv[1].split(","):
+    for cell in sys.argv[1].split(","):
+        arch, kind, batch = re.fullmatch(r"(.+)/(\\w+)(?:@(\\d+))?",
+                                         cell).groups()
         cfg = REDUCED[arch]
-        for kind in ("decode", "prefill", "train"):
-            rec, _ = D.lower_cell(cfg, ShapeConfig("t", 64, 8, kind), mesh)
-            mod = H.parse_hlo_text(texts[-1])
-            acc = Products(mod, cfg.n_blocks)
-            acc.visit(mod.entry, 1.0)
-            an = orig(texts[-1], trip_count_fallback=cfg.n_blocks)
-            assert acc.dot_flops == an.dot_flops
-            out[f"{arch}/{kind}"] = {
-                "dot": an.dot_flops, "hbm": an.hbm_bytes,
-                "coll": an.collective_breakdown,
-                "coll_f32": coll_f32(mod, acc),
-                "dominant": rec["roofline"]["dominant"],
-                "terms": [rec["roofline"][t] for t in
-                          ("compute_s", "memory_s", "collective_s")],
-                "products": acc.products}
+        rec, _ = D.lower_cell(cfg, ShapeConfig("t", 64, int(batch or 8),
+                                               kind), mesh)
+        mod = H.parse_hlo_text(texts[-1])
+        acc = Products(mod, cfg.n_blocks)
+        acc.visit(mod.entry, 1.0)
+        an = orig(texts[-1], trip_count_fallback=cfg.n_blocks)
+        assert acc.dot_flops == an.dot_flops
+        out[cell] = {
+            "dot": an.dot_flops, "hbm": an.hbm_bytes,
+            "coll": an.collective_breakdown,
+            "coll_f32": coll_f32(mod, acc),
+            "dominant": rec["roofline"]["dominant"],
+            "terms": [rec["roofline"][t] for t in
+                      ("compute_s", "memory_s", "collective_s")],
+            "products": acc.products}
     print(json.dumps(out))
 """)
 
 _PORT = textwrap.dedent("""
-    import json, sys
+    import json, re, sys
     from collections import defaultdict
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -155,24 +160,25 @@ _PORT = textwrap.dedent("""
         return seen[-1][1]
     D._counts = keep
     out = {}
-    for arch in sys.argv[1].split(","):
-        for kind in ("decode", "prefill", "train"):
-            rec, _ = D.lower_cell(REDUCED[arch], ShapeConfig("t", 64, 8, kind),
-                                  mesh)
-            prog, counts = seen[-1]
-            coll = defaultdict(float)
-            for c in counts["an"].collectives:
-                coll[c.opcode] += c.bytes
-            products = [[list(u.ops[0].ins[0].shape),
-                         list(u.ops[0].ins[1].shape), u.dot_flops, u.kind]
-                        for u in census.program_units(prog) if u.dot_flops]
-            assert sum(p[2] for p in products) == counts["dot_flops"]
-            out[f"{arch}/{kind}"] = {
-                "dot": counts["dot_flops"], "hbm": counts["hbm_bytes"],
-                "coll": dict(coll), "dominant": rec["roofline"]["dominant"],
-                "terms": [rec["roofline"][t] for t in
-                          ("compute_s", "memory_s", "collective_s")],
-                "products": products}
+    for cell in sys.argv[1].split(","):
+        arch, kind, batch = re.fullmatch(r"(.+)/(\\w+)(?:@(\\d+))?",
+                                         cell).groups()
+        rec, _ = D.lower_cell(REDUCED[arch], ShapeConfig(
+            "t", 64, int(batch or 8), kind), mesh)
+        prog, counts = seen[-1]
+        coll = defaultdict(float)
+        for c in counts["an"].collectives:
+            coll[c.opcode] += c.bytes
+        products = [[list(u.ops[0].ins[0].shape),
+                     list(u.ops[0].ins[1].shape), u.dot_flops, u.kind]
+                    for u in census.program_units(prog) if u.dot_flops]
+        assert sum(p[2] for p in products) == counts["dot_flops"]
+        out[cell] = {
+            "dot": counts["dot_flops"], "hbm": counts["hbm_bytes"],
+            "coll": dict(coll), "dominant": rec["roofline"]["dominant"],
+            "terms": [rec["roofline"][t] for t in
+                      ("compute_s", "memory_s", "collective_s")],
+            "products": products}
     print(json.dumps(out))
 """)
 
@@ -182,7 +188,11 @@ class Named:
     """A product whose per-device work differs: in `cell`, the
     reference's `count` products of operand shapes `ref` (lhs, rhs) take
     `ref_flops` in all, the port's for the same work (shapes `port`)
-    `port_flops`."""
+    `port_flops`. A batched product (a recurrence's einsums) gives a
+    tuple of (lhs, rhs) pairs a side and no count: its FLOPs are the
+    sums over those shapes, exact on both sides. `shared`: FLOPs of
+    other products of the reference's shapes, which the port runs at
+    the same shapes (a token's (D,) row is the port's (1, D))."""
     cell: str
     op: str
     ref: tuple
@@ -191,6 +201,7 @@ class Named:
     ref_flops: int
     port_flops: int
     cause: str
+    shared: int = 0
 
 
 _KV = ("2 KV heads do not divide the 4-way model axis: wk and wv stay "
@@ -249,19 +260,26 @@ DOMINANT_DIFFERS = {
 }
 
 
-def _run_both():
+def _run_both(cells=CELLS, procs: int = 1):
+    """The reference's and the port's programs on `cells` ("arch/kind",
+    or "arch/kind@batch" for a batch other than 8), each side split over
+    `procs` processes, all run at once. Returns (ref, port), each
+    {cell: counts}."""
     env = dict(os.environ, PYTHONPATH="src")
-    archs = ",".join(ARCHS)
+    parts = [",".join(cells[i::procs]) for i in range(procs)]
 
-    def run(code):
-        r = subprocess.run([sys.executable, "-c", code, archs], env=env,
+    def run(job):
+        code, part = job
+        r = subprocess.run([sys.executable, "-c", code, part], env=env,
                            cwd=ROOT, capture_output=True, text=True,
                            timeout=400)
         assert r.returncode == 0, r.stderr[-3000:]
         return json.loads(r.stdout.strip().splitlines()[-1])
-    with ThreadPoolExecutor(2) as pool:
-        ref, port = pool.map(run, (_REFERENCE, _PORT))
-    return ref, port
+    jobs = [(code, part) for code in (_REFERENCE, _PORT) for part in parts]
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        outs = list(pool.map(run, jobs))
+    merge = lambda ds: {k: v for d in ds for k, v in d.items()}
+    return merge(outs[:procs]), merge(outs[procs:])
 
 
 @pytest.fixture(scope="module")
@@ -269,72 +287,113 @@ def cells():
     return _run_both()
 
 
-def _named(cell):
-    return [n for n in NAMED if n.cell == cell]
+def _pairs(shapes) -> set:
+    """The (lhs, rhs) operand shape pairs of a `Named` side."""
+    pairs = (shapes,) if isinstance(shapes[0][0], int) else shapes
+    return {(tuple(lhs), tuple(rhs)) for lhs, rhs in pairs}
 
 
-def _net_reference(ref, cell):
+def _flops_at(products, shapes, rows=tuple) -> int:
+    """FLOPs of the products of operand shapes in `shapes`, each lhs
+    first mapped by `rows`."""
+    return sum(p[2] for p in products
+               if (rows(p[0]), tuple(p[1])) in shapes)
+
+
+def _token_rows(lhs) -> tuple:
+    """A product's lhs with its leading size-1 dims dropped."""
+    lhs = tuple(lhs)
+    while len(lhs) > 1 and lhs[0] == 1:
+        lhs = lhs[1:]
+    return lhs
+
+
+def _net_reference(ref, cell, named=NAMED):
     """The reference's dot FLOPs with each named product at the port's
     work."""
     return ref[cell]["dot"] - sum(n.ref_flops - n.port_flops
-                                  for n in _named(cell))
+                                  for n in named if n.cell == cell)
 
 
-@pytest.mark.parametrize("n", NAMED, ids=lambda n: f"{n.cell}:{n.op}")
-def test_named_differences_are_in_both_programs(n, cells):
-    ref, port = cells
-    got = [p[2] for p in ref[n.cell]["products"]
-           if (tuple(p[0]), tuple(p[1])) == n.ref]
-    assert len(got) and sum(got) == n.ref_flops, got
-    assert n.ref_flops == 2 * n.count * math.prod(n.ref[0]) * n.ref[1][1]
-    assert n.port_flops == 2 * n.count * math.prod(n.port[0]) * n.port[1][1]
-    theirs = sum(p[2] for p in port[n.cell]["products"]
-                 if (tuple(p[0]), tuple(p[1])) == n.port)
-    assert theirs >= n.port_flops
+def check_named(n: Named, ref, port):
+    """`n` is in both programs, its FLOPs as stated, and the port's work
+    is the smaller."""
+    rs, ps = _pairs(n.ref), _pairs(n.port)
+    assert _flops_at(ref[n.cell]["products"], rs) == n.ref_flops + n.shared
+    assert n.port_flops < n.ref_flops
+    theirs = _flops_at(port[n.cell]["products"], ps)
+    if n.count:
+        assert n.ref_flops == \
+            2 * n.count * math.prod(n.ref[0]) * n.ref[1][1]
+        assert n.port_flops == \
+            2 * n.count * math.prod(n.port[0]) * n.port[1][1]
+        assert theirs >= n.port_flops
+    else:
+        assert theirs == n.port_flops
+    if n.shared:
+        assert _flops_at(port[n.cell]["products"], rs,
+                         _token_rows) == n.shared
 
 
-@pytest.mark.parametrize("cell", [c for c in CELLS if "train" not in c])
-def test_serving_dot_flops_equal_the_reference_but_the_named(cell, cells):
-    ref, port = cells
-    assert port[cell]["dot"] == _net_reference(ref, cell)
+def check_serving(cell, ref, port, named):
+    assert port[cell]["dot"] == _net_reference(ref, cell, named)
 
 
-@pytest.mark.parametrize("cell", [c for c in CELLS if "decode" in c])
-def test_decode_products_run_on_the_batch_shard(cell, cells):
-    _, port = cells
+def check_batch_shard(cell, port):
     for lhs, rhs, _, kind in port[cell]["products"]:
         if kind == "dot" and len(lhs) == 2:
             assert lhs[0] == BATCH // DATA, (lhs, rhs)
 
 
+def check_train_band(cell, ref, port, named):
+    r = port[cell]["dot"] / _net_reference(ref, cell, named)
+    assert TRAIN_DOT_RATIO / BAND <= r <= TRAIN_DOT_RATIO * BAND, r
+
+
+def check_dominant(cell, ref, port, differs):
+    pair = (ref[cell]["dominant"], port[cell]["dominant"])
+    want = differs.get(cell, (pair[0], pair[0]))
+    assert pair == want[:2], pair
+
+
+@pytest.mark.parametrize("n", NAMED, ids=lambda n: f"{n.cell}:{n.op}")
+def test_named_differences_are_in_both_programs(n, cells):
+    check_named(n, *cells)
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS if "train" not in c])
+def test_serving_dot_flops_equal_the_reference_but_the_named(cell, cells):
+    check_serving(cell, *cells, NAMED)
+
+
+@pytest.mark.parametrize("cell", [c for c in CELLS if "decode" in c])
+def test_decode_products_run_on_the_batch_shard(cell, cells):
+    check_batch_shard(cell, cells[1])
+
+
 @pytest.mark.parametrize("cell", [c for c in CELLS if "train" in c])
 def test_train_dot_flops_within_the_one_device_band(cell, cells):
-    ref, port = cells
-    r = port[cell]["dot"] / _net_reference(ref, cell)
-    assert TRAIN_DOT_RATIO / BAND <= r <= TRAIN_DOT_RATIO * BAND, r
+    check_train_band(cell, *cells, NAMED)
 
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_dominant_terms(cell, cells):
-    ref, port = cells
-    pair = (ref[cell]["dominant"], port[cell]["dominant"])
-    want = DOMINANT_DIFFERS.get(cell, (pair[0], pair[0]))
-    assert pair == want[:2], pair
+    check_dominant(cell, *cells, DOMINANT_DIFFERS)
 
 
-def _table(ref, port) -> str:
+def table(ref, port, cells=CELLS, named=NAMED) -> str:
     """Two markdown tables: per cell the dot FLOPs, collective bytes and
     roofline terms; then the collective bytes by kind."""
     rows = ["| cell | ref dot FLOPs | port dot FLOPs | port / net ref | "
             "ref coll. B (f32 share) | port coll. B | ref coll. / mem. term "
             "| port coll. / mem. term | dominant ref / port |",
             "|---" * 9 + "|"]
-    for cell in CELLS:
+    for cell in cells:
         r, p = ref[cell], port[cell]
         rc, pc = sum(r["coll"].values()), sum(p["coll"].values())
         rows.append(
             f"| {cell} | {r['dot']:,.0f} | {p['dot']:,.0f} | "
-            f"{p['dot'] / _net_reference(ref, cell):.4f} | {rc:,.0f} "
+            f"{p['dot'] / _net_reference(ref, cell, named):.4f} | {rc:,.0f} "
             f"({r['coll_f32'] / rc:.3f}) | {pc:,.0f} | "
             f"{r['terms'][2] / r['terms'][1]:.3f} | "
             f"{p['terms'][2] / p['terms'][1]:.3f} | {r['dominant']} / "
@@ -342,7 +401,7 @@ def _table(ref, port) -> str:
     rows += ["", "| cell | " + " | ".join(f"{k} ref / port"
                                           for k in COLLECTIVES) + " |",
              "|---" * (1 + len(COLLECTIVES)) + "|"]
-    for cell in CELLS:
+    for cell in cells:
         rows.append(f"| {cell} | " + " | ".join(
             f"{ref[cell]['coll'].get(k, 0):,.0f} / "
             f"{port[cell]['coll'].get(k, 0):,.0f}" for k in COLLECTIVES)
@@ -351,4 +410,4 @@ def _table(ref, port) -> str:
 
 
 if __name__ == "__main__":
-    print(_table(*_run_both()))
+    print(table(*_run_both()))

@@ -1,7 +1,7 @@
 """The port stands alone: neither `repro_torch` nor chip_smoke.py,
-serve_pair.py, ring_sweep.py and flash_bwd_sweep.py import JAX or
-anything of the reference package, and its entry points default to the
-card instead of falling back to the CPU."""
+serve_pair.py, mesh_pair.py, ring_sweep.py and flash_bwd_sweep.py import
+JAX or anything of the reference package, and its entry points default
+to the card instead of falling back to the CPU."""
 
 import ast
 import os
@@ -14,7 +14,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-SCRIPTS = ("chip_smoke", "serve_pair", "ring_sweep", "flash_bwd_sweep")
+SCRIPTS = ("chip_smoke", "serve_pair", "mesh_pair", "ring_sweep",
+           "flash_bwd_sweep")
 FILES = sorted(PORT.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
 
 
