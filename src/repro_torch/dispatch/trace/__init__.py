@@ -9,8 +9,11 @@ versioned, JSON + Chrome `trace_event` export):
   * **record** — `PlanExecutor.run(..., tracer=Trace())` measures the
     executed timeline (compute spans per node, channel occupancy per
     staging/exchange, FaceCache compile-vs-hit); the serving engine
-    layers per-slot decode-step latencies on top
-    (`ServeEngine.attach_tracer`).
+    layers each admission's and decode step's launch and sync seconds on
+    top (`ServeEngine.attach_tracer`; always into the engine's bounded
+    process-level trace, `serve.engine.RECENT`, when none is attached),
+    and `span` marks named stretches of the serving path inside them,
+    mirrored into `torch.profiler`'s timeline (`repro_torch.spans`).
   * **replay** — `replay.replay` re-prices a recorded linearization +
     assignment under the pipelined event-sim discipline (queue per
     device, ONE shared transfer channel), including on what-if hardware
@@ -24,6 +27,7 @@ Units everywhere: seconds and bytes; device names from
 `placement.DEVICES` plus the pseudo-resources `"channel"`/`"engine"`.
 """
 
+from ...spans import scope, span
 from .events import EVENT_KINDS, TRACE_SCHEMA_VERSION, Trace, TraceEvent
 from .replay import (FIDELITY_BAND, FidelityReport, ReplayResult,
                      executed_order, fidelity, measured_node_times,

@@ -22,6 +22,7 @@ format (`Trace.save_chrome`) loadable in chrome://tracing or Perfetto.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import time
@@ -33,11 +34,15 @@ TRACE_SCHEMA_VERSION = 1
 
 #: every event kind the tracer emits; `compute`/`launch` occupy a device,
 #: `stage_in`/`exchange`/`writeback`/`transfer_out` occupy the shared
-#: transfer channel, `compile`/`cache_hit` are FaceCache accounting, and
-#: `prefill_step`/`decode_step` are per-slot serving-loop latencies
+#: transfer channel, `compile`/`cache_hit` are FaceCache accounting,
+#: `prefill_step`/`decode_step` are the serving engine's admissions and
+#: batched steps (scalar attributes: the host seconds spent issuing the
+#: work, `launch_s`, and waiting on the device, `sync_s`, and the ids
+#: `rid` or `step`), and `span` is a named stretch of host code inside
+#: one of them (`repro_torch.spans.span`), with that call's id
 EVENT_KINDS = ("compute", "launch", "stage_in", "exchange", "writeback",
                "transfer_out", "compile", "cache_hit", "prefill_step",
-               "decode_step")
+               "decode_step", "span")
 
 
 @dataclasses.dataclass
@@ -82,17 +87,22 @@ class Trace:
     list append per event) so a tracer can stay attached to the serving
     hot loop — the <5% overhead budget benchmarks.dispatch_bench
     measures. `meta` carries run-level context (graph name, assignment,
-    whether spans are modeled or measured)."""
+    whether spans are modeled or measured). With a `cap`, the trace holds
+    the last `cap` events, the oldest dropped first; without one it holds
+    every event. `origin` is the `time.perf_counter()` value at t = 0, so
+    `origin + e.t0` is on the host clock."""
 
-    def __init__(self, name: str = "trace", meta: dict | None = None):
+    def __init__(self, name: str = "trace", meta: dict | None = None,
+                 cap: int | None = None):
         self.name = name
         self.meta: dict = dict(meta or {})
-        self.events: list[TraceEvent] = []
-        self._origin = time.perf_counter()
+        self.events: list[TraceEvent] | collections.deque = (
+            [] if cap is None else collections.deque(maxlen=cap))
+        self.origin = time.perf_counter()
 
     def now(self) -> float:
         """Seconds since the trace origin (monotonic, `perf_counter`)."""
-        return time.perf_counter() - self._origin
+        return time.perf_counter() - self.origin
 
     def add(self, kind: str, name: str, resource: str, t0: float,
             t1: float | None = None, group: int = -1,

@@ -56,9 +56,10 @@ def main(argv=None):
                          "serial/overlapped/pipelined wall-clocks and "
                          "per-resource busy/idle occupancy")
     ap.add_argument("--trace", default=None, metavar="OUT_JSON",
-                    help="record the measured execution trace and write it "
-                         "as JSON, plus a Chrome trace_event twin next to "
-                         "it (.chrome.json)")
+                    help="record the measured execution trace (each "
+                         "step's launch and sync seconds, the spans inside "
+                         "it) and write it as JSON, plus a Chrome "
+                         "trace_event twin next to it (.chrome.json)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     args = ap.parse_args(argv)
@@ -148,9 +149,13 @@ def main(argv=None):
         steps = tracer.by_kind("decode_step")
         if steps:
             lat = sorted(e.dur_s for e in steps)
+            launch = sum(e.attrs["launch_s"] for e in steps) / len(steps)
+            sync = sum(e.attrs["sync_s"] for e in steps) / len(steps)
             print(f"trace: {len(tracer.events)} events "
                   f"({len(steps)} decode steps, median "
-                  f"{lat[len(lat) // 2] * 1e3:.2f}ms/step) "
+                  f"{lat[len(lat) // 2] * 1e3:.2f}ms/step, mean "
+                  f"{launch * 1e3:.2f}ms launch + {sync * 1e3:.2f}ms sync; "
+                  f"{len(tracer.by_kind('span'))} spans) "
                   f"-> {args.trace} (+ {chrome})")
     return done
 

@@ -13,7 +13,9 @@ runs the plain path.
 (`serve.dispatch_engine`: decode over the decode DAG, prefill chunked by
 `--prefill-chunk` over the prefill DAG) instead of the fused forward.
 `--profile` runs the workload under `torch.profiler` and prints the ops
-that took the most device time and the device's busy share of the wall.
+that took the most device time, the device's busy share of the wall (the
+union of its operations' intervals) and the engine's mean launch and sync
+milliseconds a decode step and an admission (`serve.engine.RECENT`).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ..configs import get_arch
 from ..device import resolve_device
 from ..models import init_params
 from ..serve import Request, ServeEngine
+from ..serve.engine import RECENT
 
 
 def main(argv=None) -> int:
@@ -95,15 +98,37 @@ def main(argv=None) -> int:
     if args.profile:
         key = ("self_device_time_total" if dev.type == "cuda"
                else "self_cpu_time_total")
-        stats = prof.key_averages()
-        print(stats.table(sort_by=key, row_limit=15))
-        # kernels only: an op's row repeats the device time of its kernels
-        busy = sum(e.self_device_time_total for e in stats
-                   if e.device_type == DeviceType.CUDA
-                   and not e.is_user_annotation) / 1e6
+        print(prof.key_averages().table(sort_by=key, row_limit=15))
+        busy = busy_seconds(
+            (e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA
+            and not e.is_user_annotation())
         print(f"device busy {busy:.3f}s of {dt:.3f}s wall "
               f"({busy / dt:.1%}, under the profiler)")
+        for kind, what in (("decode_step", "a decode step"),
+                           ("prefill_step", "an admission")):
+            evs = [e for e in RECENT.events if e.kind == kind
+                   and RECENT.origin + e.t0 >= t0]
+            if evs:
+                launch = 1e3 * sum(e.attrs["launch_s"] for e in evs) / len(evs)
+                sync = 1e3 * sum(e.attrs["sync_s"] for e in evs) / len(evs)
+                print(f"engine: {launch:.3f} ms launch + {sync:.3f} ms sync "
+                      f"{what}, mean of {len(evs)}")
     return 0
+
+
+def busy_seconds(intervals) -> float:
+    """Seconds covered by the union of (start, end) intervals in ns."""
+    busy, end = 0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy * 1e-9
 
 
 def _profiler(dev):

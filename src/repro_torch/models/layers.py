@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from ..dist import replicate_uneven
 from ..kernels import ops
 from ..kernels._build import LaunchCounter
+from ..spans import span
 from .config import ModelConfig
 from .sharding import NO_SHARDING, ParamDef, Shardings, is_dtensor
 
@@ -607,21 +608,28 @@ def moe_forward(x, p, cfg: ModelConfig, shd: Shardings = NO_SHARDING):
     """Top-k expert MLP with per-row capacity dispatch: `moe_dispatch`,
     `moe_expert_ffn`, `moe_combine`, plus the shared experts (sigmoid
     gated for qwen2-moe). Returns (y, aux), aux the Switch-style
-    load-balance loss in f32."""
+    load-balance loss in f32. Each part is a span: `model.moe.router`,
+    `.aux`, `.experts`, `.combine`, `.shared`."""
     e, k = cfg.n_experts, cfg.top_k
-    buf, topi, pos, w, gates = moe_dispatch(x, p["router"], cfg, shd)
+    with span("model.moe.router"):
+        buf, topi, pos, w, gates = moe_dispatch(x, p["router"], cfg, shd)
 
-    me = gates.float().mean(dim=(0, 1))
-    counts = shd.local(lambda t: F.one_hot(t, e).float().sum(2), topi)
-    ce = counts.mean(dim=(0, 1)) / k
-    aux = e * (me * ce).sum()
+    with span("model.moe.aux"):
+        me = gates.float().mean(dim=(0, 1))
+        counts = shd.local(lambda t: F.one_hot(t, e).float().sum(2), topi)
+        ce = counts.mean(dim=(0, 1)) / k
+        aux = e * (me * ce).sum()
 
-    out_buf = moe_expert_ffn(buf, p, cfg, shd)
-    y = moe_combine(out_buf, topi, pos, w, x.dtype, shd)
+    with span("model.moe.experts"):
+        out_buf = moe_expert_ffn(buf, p, cfg, shd)
+    with span("model.moe.combine"):
+        y = moe_combine(out_buf, topi, pos, w, x.dtype, shd)
 
     if cfg.n_shared_experts:
-        sh = mlp_forward(x, p["shared"], cfg, shd)
-        sg = _grad_as_input(torch.sigmoid(_gate(x, p["shared_gate"], shd)))
-        y = y + (sh * sg.to(x.dtype) if cfg.name.startswith("qwen2-moe")
-                 else sh)
+        with span("model.moe.shared"):
+            sh = mlp_forward(x, p["shared"], cfg, shd)
+            sg = _grad_as_input(torch.sigmoid(_gate(x, p["shared_gate"],
+                                                    shd)))
+            y = y + (sh * sg.to(x.dtype) if cfg.name.startswith("qwen2-moe")
+                     else sh)
     return shd.act(y, "batch", "seq", None), aux

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..spans import span
 from . import cache as cache_lib
 from . import layers as L
 from .config import LayerSpec, ModelConfig, torch_dtype
@@ -270,21 +271,24 @@ def _write_state(cache_slice, new_state) -> None:
 
 def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
                   cache_slice, index, width, encoder_out=None,
-                  shd: Shardings = NO_SHARDING):
-    """One pattern position. `cache_slice` (None without a cache) is the
-    layer's tree of cache views, updated in place. Returns (x, aux): aux
-    is the MoE layer's load-balance loss, a Python 0.0 for any other
-    layer (no device op)."""
+                  shd: Shardings = NO_SHARDING, layer: int = -1):
+    """One pattern position, the `layer`-th of the stack. `cache_slice`
+    (None without a cache) is the layer's tree of cache views, updated in
+    place. Returns (x, aux): aux is the MoE layer's load-balance loss, a
+    Python 0.0 for any other layer (no device op). The attention and the
+    MLP or MoE, after their norms, are spans (`model.attn`, `model.mlp`,
+    `model.moe`) with the layer's number."""
     aux = 0.0
     h = _norm(x, p["ln1"], cfg, shd)
     if spec.kind == "attn":
-        x = x + _attention(h, p["attn"], cfg, rope, cache_slice, index,
-                           width, shd)
-        if spec.cross_attn:
-            h = _norm(x, p["ln_cross"], cfg, shd)
-            cc = None if cache_slice is None else cache_slice["cross"]
-            x = x + _cross_attention(h, p["cross"], cfg, cc, encoder_out,
-                                     shd)
+        with span("model.attn", layer=layer):
+            x = x + _attention(h, p["attn"], cfg, rope, cache_slice, index,
+                               width, shd)
+            if spec.cross_attn:
+                h = _norm(x, p["ln_cross"], cfg, shd)
+                cc = None if cache_slice is None else cache_slice["cross"]
+                x = x + _cross_attention(h, p["cross"], cfg, cc,
+                                         encoder_out, shd)
     elif spec.kind == "mamba":
         o, state = mamba_forward(h, p["mamba"], cfg, cache_slice, shd)
         x = x + o
@@ -304,11 +308,13 @@ def block_forward(x, spec: LayerSpec, p, cfg: ModelConfig, rope,
 
     if spec.mlp != "none":
         h = _norm(x, p["ln2"], cfg, shd)
-        if spec.mlp == "moe":
-            o, aux = L.moe_forward(h, p["mlp"], cfg, shd)
-        else:
-            o = L.mlp_forward(h, p["mlp"], cfg, shd)
-        x = x + o
+        with span("model.moe" if spec.mlp == "moe" else "model.mlp",
+                  layer=layer):
+            if spec.mlp == "moe":
+                o, aux = L.moe_forward(h, p["mlp"], cfg, shd)
+            else:
+                o = L.mlp_forward(h, p["mlp"], cfg, shd)
+            x = x + o
     return shd.act(x, "batch", "seq", None), aux
 
 
@@ -348,7 +354,7 @@ def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
                 for i, spec in enumerate(pattern):
                     x, a = block_forward(x, spec, blocks[i][blk], cfg, rope,
                                          None, index, width, encoder_out,
-                                         shd)
+                                         shd, blk * len(pattern) + i)
                     aux = aux + a
             return x, aux
 
@@ -367,7 +373,7 @@ def stack_forward(x, params, cfg: ModelConfig, rope, cache_layers, index,
             sl = (None if cache_layers is None
                   else tree_map(lambda t: t[blk], cache_layers[i]))
             x, a = block_forward(x, spec, lp, cfg, rope, sl, index, width,
-                                 encoder_out, shd)
+                                 encoder_out, shd, blk * len(pattern) + i)
             aux = aux + a
     return x, cache_layers, aux
 
@@ -505,16 +511,18 @@ def _forward(params, cfg: ModelConfig, shd: Shardings, *, tokens, embeds,
     x, new_layers, aux = stack_forward(x, params, cfg, rope, cache_layers,
                                        attn_index, width, encoder_out, shd)
 
-    x = _norm(x, params["final_norm"], cfg, shd)
-    # the unembed's vocab over tp, its FSDP dim gathered (kept where the
-    # rows do not split: `Shardings.stationary`); a tied embedding keeps
-    # its width over tp and contracts it there
-    wk = ((None, "tp") if cfg.tie_embeddings
-          else ("vocab", shd.stationary(x.shape[0])))
-    wv = shd.lay((params["embed"] if cfg.tie_embeddings
-                  else params["unembed"]).to(x.dtype), *wk)
-    logits = shd.act(L._rows(x, shd, wk[1]) @ wv.t(), "batch", None, "vocab")
-    logits = mask_vocab_padding(logits, cfg)
+    with span("model.unembed"):
+        x = _norm(x, params["final_norm"], cfg, shd)
+        # the unembed's vocab over tp, its FSDP dim gathered (kept where
+        # the rows do not split: `Shardings.stationary`); a tied embedding
+        # keeps its width over tp and contracts it there
+        wk = ((None, "tp") if cfg.tie_embeddings
+              else ("vocab", shd.stationary(x.shape[0])))
+        wv = shd.lay((params["embed"] if cfg.tie_embeddings
+                      else params["unembed"]).to(x.dtype), *wk)
+        logits = shd.act(L._rows(x, shd, wk[1]) @ wv.t(), "batch", None,
+                         "vocab")
+        logits = mask_vocab_padding(logits, cfg)
 
     new_cache = None
     if cache is not None:

@@ -13,6 +13,11 @@ Greedy sampling by default; temperature sampling draws from the engine's
 `torch.Generator` (its bits differ from `jax.random`'s). With
 `cfg.quant == "int8"` the engine quantizes the MoE expert weights once,
 at construction, and every forward runs on those integers.
+
+Every admission and every decode step records one event of its host
+seconds, split into launch (the work issued) and sync (the wait for the
+device), into `RECENT` or the attached tracer; while tracing is on
+(`repro_torch.spans`) the spans inside them land there too.
 """
 
 from __future__ import annotations
@@ -23,7 +28,19 @@ import time
 import torch
 
 from ..device import resolve_device
+from ..dispatch.trace import Trace, scope, span
 from ..models import ModelConfig, forward, init_cache, quantize_moe_params
+
+#: events `RECENT` holds: some minutes of decode steps, and with them the
+#: spans of a few seconds under the profiler
+RECENT_CAP = 1 << 16
+
+#: The operator's view of the process's recent serving history: every
+#: engine's `prefill_step` and `decode_step` events, and the spans inside
+#: them while the profiler records, unless a tracer is attached; the last
+#: `RECENT_CAP` of them, the oldest dropped first. `RECENT.origin + e.t0`
+#: is on the host clock (`time.perf_counter`).
+RECENT = Trace("serve.recent", cap=RECENT_CAP)
 
 
 def make_prefill_step(cfg: ModelConfig, shd=None):
@@ -145,7 +162,6 @@ class ServeEngine:
         self.prefill_s = self.decode_s = 0.0
         self.engine = engine
         self.tracer = None               # dispatch.trace.Trace | None
-        self._step_no = 0
         self.dispatch_plan = self.prefill_plan = None
         self._dispatch_decode = self._dispatch_prefill = None
         if engine == "dispatch":
@@ -193,7 +209,8 @@ class ServeEngine:
         logits, self.cache, _ = forward(self.params, self.cfg,
                                         tokens=self.last_tok,
                                         cache=self.cache, positions=positions)
-        nxt = sample(logits[:, -1], self.generator, self.temperature)
+        with span("engine.sample"):
+            nxt = sample(logits[:, -1], self.generator, self.temperature)
         # dead slots keep their last token and don't advance
         live = self.live_mask
         self.last_tok = torch.where(live, nxt, self.last_tok[:, 0])[:, None]
@@ -208,22 +225,28 @@ class ServeEngine:
         if self._dispatch_prefill is not None:
             return self._dispatch_prefill(self.params, self.cache, tokens,
                                           slot)
-        one = init_cache(self.cfg, 1, self.max_len, self.device)
+        with span("engine.prefill.cache"):
+            one = init_cache(self.cfg, 1, self.max_len, self.device)
         logits, one, _ = forward(self.params, self.cfg, tokens=tokens[None],
                                  cache=one)
-        _scatter_slot(self.cache["layers"], one["layers"], slot)
-        self.cache["index"] = torch.maximum(self.cache["index"], one["index"])
+        with span("engine.prefill.cache"):
+            _scatter_slot(self.cache["layers"], one["layers"], slot)
+            self.cache["index"] = torch.maximum(self.cache["index"],
+                                                one["index"])
         return logits[0, -1]
 
     # ------------------------------------------------------------- #
     def attach_tracer(self, tracer) -> None:
-        """Attach a `dispatch.trace.Trace`: the serving loop records one
-        `prefill_step` span per admission (with the slot and prompt
-        length) and one `decode_step` span per batched step (with the live
-        slots and per-slot positions). Under `engine="dispatch"` the
-        tracer also threads through both planner-routed steps into
-        `PlanExecutor.run` (per-node compute spans, channel occupancy) and
-        the FaceCache (compile vs cache-hit). Pass None to detach."""
+        """Attach a `dispatch.trace.Trace`: the serving loop records into
+        it, in place of `RECENT`, one `prefill_step` span per admission
+        (`rid`, `slot`, `prompt_len`, `launch_s`, `sync_s`) and one
+        `decode_step` span per batched step (`step`, `n_live`, `launch_s`,
+        `sync_s`), and, tracing being on while it is attached, the `span`
+        events inside them (`repro_torch.spans`). Under
+        `engine="dispatch"` the tracer also threads through both
+        planner-routed steps into `PlanExecutor.run` (per-node compute
+        spans, channel occupancy) and the FaceCache (compile vs
+        cache-hit). Pass None to detach."""
         self.tracer = tracer
         for step in (self._dispatch_decode, self._dispatch_prefill):
             if step is not None:
@@ -265,17 +288,23 @@ class ServeEngine:
         if req.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {req.max_new_tokens}")
+        rec = RECENT if self.tracer is None else self.tracer
         t0 = time.perf_counter()
-        tt0 = self.tracer.now() if self.tracer is not None else 0.0
-        prompt = req.prompt.to(self.device, torch.int64)
-        logits = self._prefill_one(prompt, slot)
-        first = int(sample(logits, self.generator, self.temperature))
-        req.first_token_at = time.perf_counter()
-        if self.tracer is not None:
-            self.tracer.add("prefill_step", f"req{req.rid}", "engine", tt0,
-                            slot=slot, prompt_len=plen)
+        with scope(rec, self.tracer is not None, rid=req.rid):
+            with span("engine.prefill.launch"):
+                prompt = req.prompt.to(self.device, torch.int64)
+                logits = self._prefill_one(prompt, slot)
+            t1 = time.perf_counter()
+            with span("engine.prefill.sync"):
+                with span("engine.sample"):
+                    tok = sample(logits, self.generator, self.temperature)
+                first = int(tok)
+            t2 = req.first_token_at = time.perf_counter()
+        rec.add("prefill_step", f"req{req.rid}", "engine", t0 - rec.origin,
+                t2 - rec.origin, rid=req.rid, slot=slot, prompt_len=plen,
+                launch_s=t1 - t0, sync_s=t2 - t1)
         self.n_prefills += 1
-        self.prefill_s += req.first_token_at - t0
+        self.prefill_s += t2 - t0
         req.out_tokens.append(first)
         if (len(req.out_tokens) >= req.max_new_tokens
                 or (self.eos_id is not None and first == self.eos_id)):
@@ -292,20 +321,23 @@ class ServeEngine:
         """One batched decode step for all live slots. Returns #live."""
         if not any(self.slot_live):
             return 0
+        rec = RECENT if self.tracer is None else self.tracer
+        n = self.n_decode_steps + 1
         t0 = time.perf_counter()
-        tt0 = self.tracer.now() if self.tracer is not None else 0.0
-        self._decode_step()
-        # ONE host sync per step: tokens and positions fetched together
-        toks, pos = torch.stack([self.last_tok[:, 0], self.slot_pos]).tolist()
+        with scope(rec, self.tracer is not None, step=n):
+            with span("engine.decode.launch"):
+                self._decode_step()
+            t1 = time.perf_counter()
+            # ONE host sync per step: tokens and positions fetched together
+            with span("engine.decode.sync"):
+                toks, pos = torch.stack([self.last_tok[:, 0],
+                                         self.slot_pos]).tolist()
+            t2 = time.perf_counter()
         self.n_decode_steps += 1
-        self.decode_s += time.perf_counter() - t0
-        if self.tracer is not None:      # the sync above: span = real step
-            self._step_no += 1
-            self.tracer.add(
-                "decode_step", f"step{self._step_no}", "engine", tt0,
-                n_live=sum(self.slot_live),
-                slots=[s for s, lv in enumerate(self.slot_live) if lv],
-                positions=[p for p, lv in zip(pos, self.slot_live) if lv])
+        self.decode_s += t2 - t0
+        rec.add("decode_step", f"step{n}", "engine", t0 - rec.origin,
+                t2 - rec.origin, step=n, n_live=self.slot_live.count(True),
+                launch_s=t1 - t0, sync_s=t2 - t1)
         for slot, req in enumerate(self.slot_req):
             if req is None or not self.slot_live[slot]:
                 continue

@@ -48,6 +48,7 @@ def test_serve_decode(engine, tmp_path, capsys):
         assert "decode plan [dag-dp" in out and "executed timeline" in out
         doc = json.loads((tmp_path / "t.json").read_text())
         assert any(e["kind"] == "decode_step" for e in doc["events"])
+        assert "ms launch + " in out
 
 
 @pytest.mark.parametrize("engine", ["jit", "dispatch"])

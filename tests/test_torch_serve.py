@@ -165,3 +165,14 @@ def test_launch_serve_runs_on_cpu(capsys, extra):
     out = capsys.readouterr().out
     assert "3 requests, 9 tokens" in out
     assert ("device busy" in out) == bool(extra)
+    assert ("ms launch + " in out and "ms sync a decode step" in out
+            and "ms sync an admission" in out) == bool(extra)
+
+
+def test_profile_busy_share_is_a_union_of_intervals():
+    """`--profile`'s busy seconds count overlapping and nested device
+    operations once (a sum of their times would count them twice)."""
+    ns = 10**9
+    assert t_launch.busy_seconds([(0, 2 * ns), (ns, 3 * ns), (ns, ns + 5),
+                                  (5 * ns, 6 * ns)]) == pytest.approx(4.0)
+    assert t_launch.busy_seconds([]) == 0.0

@@ -248,3 +248,127 @@ def test_calibration_fits_int8_and_exchange_constants(dims, fits, absent):
         assert abs(names[k].drift) < 1e-6, k
     for k in absent:
         assert k not in names
+
+
+def test_capped_trace_keeps_the_newest_events():
+    """A trace with a cap drops its oldest events first; one without keeps
+    every event in a list, as before; `origin` puts event times on the
+    host clock."""
+    import time
+    t = Trace("capped", cap=3)
+    for i in range(5):
+        t.add("span", f"s{i}", "engine", float(i), float(i) + 0.5)
+    assert [e.name for e in t.events] == ["s2", "s3", "s4"]
+    assert [e.name for e in t.by_kind("span")] == ["s2", "s3", "s4"]
+    assert len(t.to_json()["events"]) == 3
+    u = Trace("uncapped")
+    for i in range(5):
+        u.add("span", f"s{i}", "engine", float(i), float(i))
+    assert isinstance(u.events, list) and len(u.events) == 5
+    before = time.perf_counter()
+    e = u.instant("span", "now", "engine")
+    assert before <= u.origin + e.t0 <= time.perf_counter()
+
+
+# --------------------------------------------------------------------- #
+# spans inside the serving path
+# --------------------------------------------------------------------- #
+
+ENGINE_SITES = {"engine.decode.launch", "engine.decode.sync",
+                "engine.sample", "engine.prefill.cache",
+                "engine.prefill.launch", "engine.prefill.sync",
+                "model.attn", "model.unembed"}
+SITES = {"granite-3-8b": ENGINE_SITES | {"model.mlp"},
+         "qwen2-moe-a2.7b": ENGINE_SITES | {
+             "model.moe", "model.moe.router", "model.moe.aux",
+             "model.moe.experts", "model.moe.combine", "model.moe.shared"}}
+
+
+def _serve_a_little(arch):
+    """A REDUCED engine on the CPU that admits two requests and steps
+    three times; returns the engine and the process trace's events that
+    it recorded."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve.engine import RECENT
+
+    cfg = dataclasses.replace(get_arch(arch, reduced=True), dtype="float32")
+    eng = ServeEngine(cfg, init_params(0, cfg, "cpu"), batch_slots=2,
+                      max_len=32, device="cpu")
+    mark = RECENT.now()
+    for rid in (7, 8):
+        eng.admit(Request(rid, torch.arange(5 + rid) + 1, 8))
+    for _ in range(3):
+        eng.step()
+    return eng, [e for e in list(RECENT.events) if e.t0 >= mark]
+
+
+@pytest.mark.parametrize("arch", sorted(SITES))
+def test_tracing_off_records_each_step_and_no_span(arch, monkeypatch):
+    """With the profiler off and no tracer attached the engine records one
+    event per admission and per step, split into launch and sync within
+    its duration, and no span; no site enters `record_function`."""
+    import torch
+    entered = []
+    real = torch.profiler.record_function
+
+    def counting(*a, **k):
+        entered.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    eng, events = _serve_a_little(arch)
+    assert entered == []
+    assert [e.kind for e in events] == ["prefill_step"] * 2 + \
+        ["decode_step"] * 3
+    assert [e.attrs["rid"] for e in events[:2]] == [7, 8]
+    assert [e.attrs["step"] for e in events[2:]] == [1, 2, 3]
+    assert all(e.attrs["n_live"] == 2 for e in events[2:])
+    for e in events:
+        assert e.attrs["launch_s"] > 0 and e.attrs["sync_s"] > 0
+        assert e.attrs["launch_s"] + e.attrs["sync_s"] <= e.dur_s
+    # the counters and the events come from the same clock reads
+    assert sum(e.dur_s for e in events[2:]) == pytest.approx(eng.decode_s)
+    assert sum(e.dur_s for e in events[:2]) == pytest.approx(eng.prefill_s)
+
+
+@pytest.mark.parametrize("arch", sorted(SITES))
+def test_spans_under_the_profiler(arch):
+    """Under `torch.profiler` every site is a user annotation on the
+    serving thread, each model span nested in an engine launch span, and
+    each span's event in the process trace carries its step or its
+    request's id."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, events = _serve_a_little(arch)
+    ann = [e for e in prof.profiler.kineto_results.events()
+           if e.is_user_annotation()]
+    assert {e.name() for e in ann} == SITES[arch]
+    ops = [e for e in prof.profiler.kineto_results.events()
+           if e.name().startswith("aten::")]
+    assert len({e.start_thread_id() for e in ann + ops}) == 1
+    launches = [(e.start_ns(), e.start_ns() + e.duration_ns())
+                for e in ann if e.name() in ("engine.decode.launch",
+                                             "engine.prefill.launch")]
+    for e in ann:
+        if e.name().startswith("model."):
+            a, b = e.start_ns(), e.start_ns() + e.duration_ns()
+            assert any(lo <= a and b <= hi for lo, hi in launches), e.name()
+    spans = [e for e in events if e.kind == "span"]
+    assert {e.name for e in spans} == SITES[arch]
+    steps = {e.t0: e for e in events if e.kind != "span"}
+    for s in spans:
+        ids = set(s.attrs) & {"rid", "step"}
+        assert len(ids) == 1, s
+        # the span lies inside the admission or step whose id it carries
+        owner = next(e for e in steps.values()
+                     if e.t0 <= s.t0 and s.t1 <= e.t1)
+        key = ids.pop()
+        assert owner.attrs[key] == s.attrs[key]
+        if s.name in ("model.attn", "model.mlp", "model.moe"):
+            assert s.attrs["layer"] >= 0
