@@ -57,6 +57,11 @@ Phases, each of which raises (exit code != 0) on failure:
    continuous batching. Launch counters must show every attention call
    went through the kernels (40 per decode step and 40 per admission),
    every prefill call on the tensor-core route, and no other kernel ran.
+   The workload is served again on the same engine, every step a replay
+   of its CUDA graph, under the profiler: the same tokens, and the
+   attention kernels the device ran (`device_launches`) the launches the
+   wrappers counted, within PROFILED_TRIES serves; those are the
+   `kernels` line's.
 6. The streaming kernels at the paper's sizes, through `kernels.ops` (the
    entry points a user calls; counters zeroed before, read after): va
    (int32) and reduction (f32) at PrIM's n = 2^27, gemv at granite-3-8b's
@@ -302,6 +307,21 @@ Phases, each of which raises (exit code != 0) on failure:
    on the other cores (DRYRUN_WORKERS); then the `roofline_bench` twin on
    its records. (b) is waited for before (a) runs: the meshed step is
    host-bound, and its time is read with no tracer on the host.
+
+19. The fused decode step as one CUDA graph (`ServeEngine` on a card):
+   every REDUCED arch (4 slots x 64) and granite-3-8b and qwen2-moe-a2.7b
+   at full width, 4 layers, 64 slots x 512, bf16, each through 64 rounds
+   of admissions and steps (deaths and re-admissions) on a graphed engine
+   and on an eager one (`eager_steps`) from the same seed: tokens, final
+   cache and slot state bit for bit equal, the same launches counted (a
+   replay credits the captured ones), every step but the first replayed,
+   ms a step after the first of both; a third, graphed engine runs the
+   rounds after its capture under the profiler, its tokens the first
+   one's and the attention kernels the device ran (`device_launches`)
+   those the wrappers counted, within PROFILED_TRIES runs; then
+   granite-3-8b's at temperature 1.0 (its generator registered with the
+   graph), and qwen2-moe-a2.7b's with int8 experts (`layers.EXPERT_MM`
+   counted beside the kernels).
 
 The second-to-last line is the `kernels` JSON: each kernel's `launches`
 are those of the phase that drives it (5 for the attention kernels, 6
@@ -594,6 +614,22 @@ DRYRUN_CODE = (
     "sys.exit(max(rcs))\n")
 # the reference's one skip reason (configs/shapes.py)
 DRYRUN_SKIP = "pure full-attention arch: 500k dense KV is quadratic-cost"
+# phase 19: the fused decode step as one CUDA graph against the eager
+# step, GRAPH_STEPS steps of a continuous-batching schedule with arrivals,
+# deaths and re-admissions: every REDUCED arch (slots x max_len, prompt
+# and budget ranges), then granite-3-8b and qwen2-moe-a2.7b at full width,
+# GRAPH_LAYERS layers, bf16, the decode cells' 64 slots
+GRAPH_STEPS = 64
+GRAPH_REDUCED = (4, 64, (3, 20), (2, 24))
+GRAPH_FULL = (64, 512, (16, 256), (8, 48))
+GRAPH_LAYERS = 4
+GRAPH_TEMPERATURE = 1.0
+# the profiler drops a kernel's record now and then, with no warning
+# (seen on the card: 4 of 252 decode and 4 of 512 flash kernels at 64
+# slots, 1 of 94 in a REDUCED arch, each counted where it launched): a
+# profiled run whose device count falls short of the wrappers' runs
+# again, and one that falls short every time fails
+PROFILED_TRIES = 3
 
 # (B, H, KVH, hd, W, lengths): the path's shape, then tests/test_kernels.py's
 DECODE_CASES = [
@@ -755,6 +791,45 @@ def kernel_device_ms(fn, args, match: str, n: int = 3) -> dict:
             out[name] = out.get(name, 0.0) + e.self_device_time_total \
                 / n / 1e3
     return out
+
+
+# the device kernels that one launch of each attention wrapper runs, by
+# the names the profiler gives them: decode's split kernel (its merge
+# kernel follows each) and flash's main kernel on either route
+WRAPPER_KERNELS = {"decode_attention": ("decode_split_kernel",),
+                   "flash_attention": ("flash_kernel", "flash_mma_kernel")}
+
+
+def device_launches(fn):
+    """`fn()` under torch.profiler's device trace. Returns its result and,
+    for each attention wrapper, the launches the device ran: its kernels
+    counted by name, a CUDA graph's replays included (the profiler sees
+    each kernel a replay runs). Raises where the decode split and merge
+    kernels ran unequal numbers of times. The profiler delivers the last
+    records late: without a pause and one more kernel before its stop,
+    it dropped the kernels of the last step or admission in some runs on
+    the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = re.compile(r"\b(decode_split_kernel|merge_kernel|flash_kernel|"
+                       r"flash_mma_kernel)\b")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(0.1)
+        torch.zeros(8, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    ran = {}
+    for e in prof.key_averages():
+        m = names.search(e.key)
+        if e.device_type == DeviceType.CUDA and m:
+            ran[m.group(1)] = ran.get(m.group(1), 0) + e.count
+    if ran.get("decode_split_kernel", 0) != ran.get("merge_kernel", 0):
+        raise AssertionError(f"device kernels {ran}: split and merge "
+                             f"kernels of decode attention differ")
+    return out, {name: sum(ran.get(k, 0) for k in ks)
+                 for name, ks in WRAPPER_KERNELS.items()}
 
 
 def bound(nbytes: float, ops_: float, rate: float) -> tuple[float, str]:
@@ -1243,9 +1318,11 @@ def serve(engine, reqs):
 
 def main_path(kernels):
     """Phase 5. Returns the serving metrics of `serve` and the launches of
-    every kernel in the run."""
+    every kernel in the run, the attention kernels' as the device ran
+    them in a second serve of the workload under the profiler."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import tree_map
+    from repro_torch.serve import Request
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1282,6 +1359,36 @@ def main_path(kernels):
         f"{want_routes}")
     if routes != want_routes:
         raise AssertionError("bf16 prefill did not take the tensor-core route")
+
+    # the workload again on the same engine, whose every step now replays
+    # its CUDA graph, under the profiler: the launches the device ran
+    # against those the wrappers counted (a replay's are credited from
+    # the capture), within PROFILED_TRIES serves, and the same tokens
+    for attempt in range(1, PROFILED_TRIES + 1):
+        again = [Request(r.rid, r.prompt, r.max_new_tokens) for r in reqs]
+        for k in kernels.values():
+            k.reset()
+        n0, g0 = engine.n_decode_steps, engine.n_graph_steps
+        done2, ran = device_launches(lambda: engine.serve(again))
+        counted = {name: kernels[name].launches for name in WRAPPER_KERNELS}
+        steps = engine.n_decode_steps - n0
+        replayed = engine.n_graph_steps - g0
+        same = sorted(r.out_tokens for r in done2) == sorted(
+            r.out_tokens for r in done)
+        log(f"  served again under the profiler ({attempt}): {steps} decode "
+            f"steps ({replayed} replayed), launches the device ran {ran}, "
+            f"counted {counted}; tokens equal to the first serve's {same}")
+        if (counted["decode_attention"] != SERVE_LAYERS * steps
+                or replayed != steps or not same
+                or any(ran[k] > counted[k] for k in ran)):
+            raise AssertionError("the second serve's counts, tokens or "
+                                 "device launches do not match the path")
+        if ran == counted:
+            break
+    else:
+        raise AssertionError(f"the device ran fewer attention kernels than "
+                             f"counted in each of {PROFILED_TRIES} serves")
+    launches.update(ran)
 
     for r, ttft, toks in zip(done, metrics["ttft_ms"], metrics["tokens"]):
         log(f"  req {r.rid}: prompt {len(r.prompt)}, TTFT {ttft:.1f} ms, "
@@ -2950,8 +3057,10 @@ def all_pim(cfg, prefill_chunks: int = 0) -> dict:
 def recorded_serve(engine, reqs):
     """`serve(engine, reqs)`, with every admission's first-token logits
     and every decode step's logits kept: the dispatch steps', or the
-    fused forward's. The recorders are taken off again after the run
-    (they refer to the engine: left on, they would keep it alive)."""
+    fused forward's, whose steps then all run eagerly (`eager_steps`: a
+    CUDA graph replays no Python to record). The recorders are taken off
+    again after the run (they refer to the engine: left on, they would
+    keep it alive)."""
     from repro_torch.serve import engine as engine_mod
     logits, first = [], []
     real_prefill = engine._prefill_one
@@ -2963,6 +3072,7 @@ def recorded_serve(engine, reqs):
         step.logits = lambda *a: logits.append(real(*a)) or logits[-1]
     else:
         real = engine_mod.forward
+        eager_steps(engine)
 
         def recording(*a, **kw):
             out = real(*a, **kw)
@@ -2976,6 +3086,7 @@ def recorded_serve(engine, reqs):
         del engine._prefill_one
         if step is None:
             engine_mod.forward = real
+            del engine._launch_step
         else:
             del step.logits
     return done, metrics, logits, first
@@ -3045,7 +3156,8 @@ def dispatch_f32_check(ops, ref, kernels, total, device: str = "cuda"):
             raise AssertionError(f"f32 {name}: decode logits are not the "
                                  f"fused engine's bits")
     log(f"  f32: {len(logits)} decode steps' logits bit-identical to the "
-        f"fused engine's, planned and all-PIM at 4 banks")
+        f"fused engine's (its eager step: the graph the engine replays is "
+        f"held to that in phase 19), planned and all-PIM at 4 banks")
     log_worst(worst, f" (kernel-f64 limit: {CALL_TOL} or plain-f64)")
     if not all(torch.equal(a, b) for a, b in zip(out["dispatch"][2], first)):
         raise AssertionError("f32 dispatch: one-chunk prefill logits are "
@@ -4596,6 +4708,183 @@ def dryrun_checks(started, timeout: float = 1000.0) -> dict:
             "moe_decode": moe_terms}
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the fused decode step as one CUDA graph
+# --------------------------------------------------------------------- #
+
+def graph_schedule(engine, cfg, shape, seed, steps=GRAPH_STEPS,
+                   kernels=None):
+    """Drive `engine` through `steps` rounds of `ServeEngine.serve`'s
+    schedule (admit while a slot is free, then one step) over seeded
+    requests that outnumber the slots, so that slots die and are filled
+    again mid-run. Returns the requests' tokens by id, the ms per step
+    after the first (the first may capture), the admissions after the
+    first step and, given `kernels`, the rounds after the first run under
+    the profiler: the attention launches the device ran in them and those
+    the wrappers counted ((ran, counted); else None)."""
+    from repro_torch.serve import Request
+    slots, _, (p_lo, p_hi), (b_lo, b_hi) = shape
+    gen = torch.Generator().manual_seed(seed)
+    n = 3 * slots
+    lens = torch.randint(p_lo, p_hi + 1, (n,), generator=gen).tolist()
+    budgets = torch.randint(b_lo, b_hi + 1, (n,), generator=gen).tolist()
+    reqs = [Request(i, torch.randint(0, cfg.vocab_size, (m,), generator=gen),
+                    b) for i, (m, b) in enumerate(zip(lens, budgets))]
+    pending = list(reqs)
+    late = 0
+
+    def rounds(lo, hi):
+        nonlocal late
+        for i in range(lo, hi):
+            while pending and engine.admit(pending[0]):
+                pending.pop(0)
+                late += i > 0
+            engine.step()
+
+    rounds(0, 1)
+    s0, n0 = engine.decode_s, engine.n_decode_steps
+    seen = None
+    if kernels is None:
+        rounds(1, steps)
+    else:
+        before = {k: kernels[k].launches for k in WRAPPER_KERNELS}
+        _, ran = device_launches(lambda: rounds(1, steps))
+        seen = ran, {k: kernels[k].launches - before[k]
+                     for k in WRAPPER_KERNELS}
+    ms = 1e3 * (engine.decode_s - s0) / max(engine.n_decode_steps - n0, 1)
+    return {r.rid: list(r.out_tokens) for r in reqs}, ms, late, seen
+
+
+def eager_steps(engine):
+    """Make `engine` run every decode step eagerly, as on the CPU: its
+    instance's `_launch_step` issues the step and reports no replay.
+    `del engine._launch_step` undoes it (left on, it keeps the engine
+    alive)."""
+    engine._launch_step = lambda: (engine._decode_step(), False)[1]
+
+
+def graph_pair(kernels, label, cfg, params, shape, temperature=0.0,
+               device="cuda"):
+    """One arch's graphed and eager engines from the same seed and
+    requests: tokens, the final cache and slot state bit for bit equal,
+    the same launches counted, and every step after the first replayed.
+    On a card a third, graphed engine runs the schedule again with the
+    rounds after its capture under the profiler: its tokens the first
+    one's, and the attention launches the device ran there those the
+    wrappers counted (a replay credits the capture's), within
+    PROFILED_TRIES such runs. Returns (graphed, eager) ms a step."""
+    from repro_torch.models import tree_map
+    from repro_torch.serve import ServeEngine
+
+    def run(kind):
+        eng = ServeEngine(cfg, params, batch_slots=shape[0],
+                          max_len=shape[1], temperature=temperature,
+                          seed=SEED, device=device)
+        if kind == "eager":
+            eager_steps(eng)
+        reset_counts(kernels)
+        toks, ms, late, seen = graph_schedule(
+            eng, cfg, shape, SEED + 23,
+            kernels=kernels if kind == "profiled" else None)
+        torch.cuda.synchronize()
+        leaves = []
+        tree_map(leaves.append, eng.cache)
+        out = dict(
+            toks=toks, ms=ms, late=late, seen=seen, leaves=leaves,
+            state=[eng.last_tok, eng.slot_pos, eng.live_mask],
+            launches={k: kern.launches for k, kern in kernels.items()},
+            steps=eng.n_decode_steps, graph_steps=eng.n_graph_steps)
+        if kind == "eager":
+            del eng._launch_step
+        return out
+
+    on_card = torch.device(device).type == "cuda"
+    g, e = run("graphed"), run("eager")
+    same_cache = all(torch.equal(a, b) for a, b in zip(g["leaves"],
+                                                       e["leaves"]))
+    same_state = all(torch.equal(a, b) for a, b in zip(g["state"],
+                                                       e["state"]))
+    n_tok = sum(map(len, g["toks"].values()))
+    log(f"  {label}: {g['steps']} steps ({g['graph_steps']} replayed), "
+        f"{g['late']} admissions after the first step, {n_tok} tokens; "
+        f"tokens equal {g['toks'] == e['toks']}, cache equal {same_cache}, "
+        f"slot state equal {same_state}; launches {g['launches']}; "
+        f"ms/step after the first: graphed {g['ms']:.3f}, eager "
+        f"{e['ms']:.3f}")
+    if g["toks"] != e["toks"]:
+        bad = [rid for rid in g["toks"] if g["toks"][rid] != e["toks"][rid]]
+        raise AssertionError(f"{label}: graphed tokens differ from eager in "
+                             f"requests {bad}")
+    if not (same_cache and same_state):
+        raise AssertionError(f"{label}: graphed cache or slot state differ "
+                             f"from eager")
+    if g["launches"] != e["launches"]:
+        raise AssertionError(f"{label}: graphed launches {g['launches']}, "
+                             f"eager {e['launches']}")
+    replays = g["steps"] - 1 if on_card else 0
+    if (g["graph_steps"] != replays or e["graph_steps"] != 0
+            or g["steps"] != e["steps"] or not g["late"]):
+        raise AssertionError(f"{label}: {g['graph_steps']} of {g['steps']} "
+                             f"steps replayed ({g['late']} late "
+                             f"admissions), eager {e['graph_steps']}")
+    for attempt in range(1, PROFILED_TRIES + 1 if on_card else 1):
+        p = run("profiled")
+        ran, counted = p["seen"]
+        log(f"    profiled rerun {attempt}: {p['graph_steps']} of "
+            f"{p['steps']} steps replayed; after the first step the device "
+            f"ran {ran}, the wrappers counted {counted}; tokens equal "
+            f"{p['toks'] == g['toks']}")
+        if (p["toks"] != g["toks"] or p["launches"] != g["launches"]
+                or p["graph_steps"] != replays
+                or any(ran[k] > counted[k] for k in ran)):
+            raise AssertionError(f"{label}: the profiled rerun's tokens, "
+                                 f"counts or device launches differ")
+        if ran == counted:
+            break
+    else:
+        if on_card:
+            raise AssertionError(f"{label}: the device ran fewer attention "
+                                 f"kernels than counted in each of "
+                                 f"{PROFILED_TRIES} profiled reruns")
+    return g["ms"], e["ms"]
+
+
+def graph_checks(kernels, device="cuda", reduced=False):
+    """Phase 19. The fused decode step as one CUDA graph per engine, held
+    bit for bit to the eager step: every REDUCED arch at GRAPH_REDUCED,
+    then granite-3-8b and qwen2-moe-a2.7b at full width (REDUCED for a
+    rehearsal on the CPU), GRAPH_LAYERS layers, at GRAPH_FULL; then one
+    seeded temperature-GRAPH_TEMPERATURE run of granite-3-8b graphed
+    against eager, and qwen2-moe-a2.7b's with int8 experts (`torch._int_mm`,
+    counted on `layers.EXPERT_MM` beside the kernels). Returns {label:
+    (graphed, eager) ms a step}."""
+    from repro_torch.configs import REDUCED, get_arch
+    from repro_torch.models import init_params, layers
+
+    cases = [(name, get_arch(name, True), GRAPH_REDUCED, False)
+             for name in REDUCED]
+    for name in ("granite-3-8b", "qwen2-moe-a2.7b"):
+        cfg = dataclasses.replace(get_arch(name, reduced),
+                                  n_layers=GRAPH_LAYERS)
+        cases.append((f"{name} {GRAPH_LAYERS} layers x {GRAPH_FULL[0]} "
+                      f"slots", cfg, GRAPH_FULL, name == "granite-3-8b"))
+    cases.append((f"{cases[-1][0]}, int8 experts",
+                  dataclasses.replace(cfg, quant="int8"), GRAPH_FULL, False))
+    counted = dict(kernels, expert_mm=layers.EXPERT_MM)
+    times = {}
+    for label, cfg, shape, sampled in cases:
+        params = init_params(SEED, cfg, device)
+        times[label] = graph_pair(counted, label, cfg, params, shape,
+                                  device=device)
+        if sampled:
+            label = f"{label}, temperature {GRAPH_TEMPERATURE}"
+            times[label] = graph_pair(counted, label, cfg, params, shape,
+                                      GRAPH_TEMPERATURE, device=device)
+        del params
+        torch.cuda.empty_cache()
+    return times
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4796,6 +5085,15 @@ def main() -> int:
     log(f"  launches on the mesh path (phase 18 (a)): {launches18}; phase "
         f"18 took {time.perf_counter() - t18:.1f}s; dry run {dry['ok']} of "
         f"{dry['records']} records ok")
+
+    log("phase 19: the fused decode step as one CUDA graph against the "
+        "eager step: every REDUCED arch; granite-3-8b and qwen2-moe-a2.7b "
+        f"at full width, {GRAPH_LAYERS} layers, {GRAPH_FULL[0]} slots; a "
+        "seeded temperature run; qwen2-moe-a2.7b with int8 experts")
+    t19 = time.perf_counter()
+    graph_checks(kernels)
+    log(f"  phase 19 took {time.perf_counter() - t19:.1f}s")
+    torch.cuda.empty_cache()
 
     for name in ("va", "reduction", "gemv"):
         launches[name] = launches6[name]

@@ -16,12 +16,16 @@ wrapper gives: the accumulator of reduction and scan ("f32", "int32"),
 va's and flash's route, gemv's accumulator and route ("int32/ring").
 `reset` zeroes both. A library routine the port calls on the card (the
 int8 expert contractions) is counted on a `LaunchCounter` of its own.
-`check_cuda` holds the preconditions every wrapper checks before a launch.
+While a CUDA graph is captured the launches run only at its replays: the
+capture (`kernels.graph_capture`) counts them into `hold_launches`'s
+`HeldLaunches`, which its owner credits once per replay. `check_cuda` holds the preconditions every
+wrapper checks before a launch.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -128,7 +132,11 @@ class LaunchCounter:
         self.route_launches.clear()
 
     def count(self, route: str | None = None, n: int = 1) -> None:
-        """Add `n` launches, under `route` if it is given."""
+        """Add `n` launches, under `route` if it is given; inside
+        `hold_launches`, hold them for the graph being captured."""
+        if _held is not None:
+            _held.launches[self, route] += n
+            return
         self.launches += n
         if route is not None:
             self.route_launches[route] += n
@@ -138,6 +146,38 @@ class LaunchCounter:
         "/"-separated parts ("ring" counts "f32/ring" and "int32/ring")."""
         return sum(n for r, n in self.route_launches.items()
                    if part in r.split("/"))
+
+
+class HeldLaunches:
+    """The launches one CUDA graph issues at each replay, by counter and
+    route: counted while it was captured, which ran none of them; and
+    the kernels' buffers the graph reads (`keep`, filled by
+    `kernels.graph_capture`)."""
+
+    def __init__(self):
+        self.launches: collections.Counter = collections.Counter()
+        self.keep: list = []
+
+    def credit(self) -> None:
+        """Count one replay's launches on their counters."""
+        for (counter, route), n in self.launches.items():
+            counter.count(route, n)
+
+
+_held: HeldLaunches | None = None    # the graph under capture, if one is
+
+
+@contextlib.contextmanager
+def hold_launches():
+    """Around a CUDA graph's capture (PyTorch captures one at a time in
+    a process): yields the `HeldLaunches` that every count inside goes
+    to, in place of the counters."""
+    global _held
+    held = _held = HeldLaunches()
+    try:
+        yield held
+    finally:
+        _held = None
 
 
 class CudaKernel(LaunchCounter):

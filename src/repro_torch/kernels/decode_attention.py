@@ -70,6 +70,13 @@ def workspace(n: int, device: torch.device, stream: int) -> torch.Tensor:
     return ws
 
 
+def workspaces(stream: int) -> list[torch.Tensor]:
+    """The workspaces kept for the calls on `stream`: a CUDA graph
+    captured there holds their addresses, so its owner keeps them alive
+    (a larger workspace may replace one in the table)."""
+    return [ws for (_, s), ws in _WORKSPACES.items() if s == stream]
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor, return_lse: bool = False):
     """Launch the kernel. q: (B,H,hd); k, v: (B,W,KVH,hd), 16-byte aligned;

@@ -91,6 +91,11 @@ def decode_attention(q, k, v, lengths):
                          f"match cache {tuple(k.shape)}")
     if is_dtensor(k):
         return _sharded_decode(q, k, v, lengths)
+    if isinstance(lengths, int):
+        # filled on the device: a copy from the host would wait for it,
+        # which a CUDA graph's capture refuses
+        lengths = torch.full((b,), lengths, dtype=torch.int32,
+                             device=q.device)
     lengths = torch.as_tensor(lengths, dtype=torch.int32, device=q.device)
     if lengths.dim() == 0:
         lengths = lengths.expand(b).contiguous()

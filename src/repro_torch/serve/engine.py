@@ -14,10 +14,20 @@ Greedy sampling by default; temperature sampling draws from the engine's
 `cfg.quant == "int8"` the engine quantizes the MoE expert weights once,
 at construction, and every forward runs on those integers.
 
+On a card the fused decode step runs as one CUDA graph per engine: every
+shape of the step is the engine's (`batch_slots` rows, `max_len` cache,
+one token a row), and the step reads and writes only the engine's own
+tensors, in place. The first step runs eagerly on the engine's capture
+stream, which sets up cuBLAS and the decode kernel's workspace there; the
+step is then captured (which runs nothing), and every later step replays
+the graph. Admissions, the planner-routed step and every CPU run stay
+eager.
+
 Every admission and every decode step records one event of its host
 seconds, split into launch (the work issued) and sync (the wait for the
 device), into `RECENT` or the attached tracer; while tracing is on
-(`repro_torch.spans`) the spans inside them land there too.
+(`repro_torch.spans`) the spans inside them land there too. A replayed
+step runs no Python of the model, so its spans are those of the capture.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 
 from ..device import resolve_device
 from ..dispatch.trace import Trace, scope, span
+from ..kernels import graph_capture
 from ..models import ModelConfig, forward, init_cache, quantize_moe_params
 
 #: events `RECENT` holds: some minutes of decode steps, and with them the
@@ -109,8 +120,9 @@ class ServeEngine:
     Single-sequence prefill per arrival (depth-first admission) + batched
     decode for all live slots. `device` None means the card; there is no
     silent fall back to the CPU. Counters: `n_prefills`, `n_decode_steps`
-    (decode forward calls), and the host seconds spent in each
-    (`prefill_s`, `decode_s`, each ending in the step's one host sync).
+    (decode forward calls), `n_graph_steps` (those a CUDA graph replayed),
+    and the host seconds spent in each (`prefill_s`, `decode_s`, each
+    ending in the step's one host sync).
 
     `engine="dispatch"` routes both phases through the offload planner.
     `dispatch_kwargs` go to `DispatchDecodeStep` (`grid`, `devices`,
@@ -158,9 +170,13 @@ class ServeEngine:
         self.slot_req: list[Request | None] = [None] * batch_slots
         self.last_tok = torch.zeros((batch_slots, 1), dtype=torch.int32,
                                     device=self.device)
-        self.n_prefills = self.n_decode_steps = 0
+        self.n_prefills = self.n_decode_steps = self.n_graph_steps = 0
         self.prefill_s = self.decode_s = 0.0
         self.engine = engine
+        # the fused step on a card runs as a CUDA graph (module docstring)
+        self._graphable = self.device.type == "cuda" and engine == "jit"
+        self._graph = None               # torch.cuda.CUDAGraph once captured
+        self._graph_held = None          # its launches and kernel buffers
         self.tracer = None               # dispatch.trace.Trace | None
         self.dispatch_plan = self.prefill_plan = None
         self._dispatch_decode = self._dispatch_prefill = None
@@ -205,16 +221,56 @@ class ServeEngine:
             return
         positions = self.slot_pos[:, None]
         # index drives slot addressing; per-slot validity is the per-row
-        # positions array (cache index is the max position across slots)
-        logits, self.cache, _ = forward(self.params, self.cfg,
-                                        tokens=self.last_tok,
-                                        cache=self.cache, positions=positions)
+        # positions array (cache index is the max position across slots).
+        # `forward` writes every cache leaf in place and returns a new
+        # index; the step's results are copied into the engine's own
+        # tensors, which a captured step reads and writes at every replay
+        logits, cache, _ = forward(self.params, self.cfg,
+                                   tokens=self.last_tok, cache=self.cache,
+                                   positions=positions)
         with span("engine.sample"):
             nxt = sample(logits[:, -1], self.generator, self.temperature)
         # dead slots keep their last token and don't advance
         live = self.live_mask
-        self.last_tok = torch.where(live, nxt, self.last_tok[:, 0])[:, None]
-        self.slot_pos = torch.where(live, self.slot_pos + 1, self.slot_pos)
+        self.cache["index"].copy_(cache["index"])
+        self.last_tok.copy_(torch.where(live, nxt,
+                                        self.last_tok[:, 0])[:, None])
+        self.slot_pos.copy_(torch.where(live, self.slot_pos + 1,
+                                        self.slot_pos))
+
+    def _launch_step(self) -> bool:
+        """Issue one decode step; True where its CUDA graph replayed it.
+        On a card the engine's first fused step runs eagerly on a stream
+        of the engine's own, and is then captured there."""
+        if self._graph is not None:
+            self._graph.replay()
+            self._graph_held.credit()
+            return True
+        if not self._graphable:
+            self._decode_step()
+            return False
+        stream = torch.cuda.Stream(self.device)
+        here = torch.cuda.current_stream(self.device)
+        stream.wait_stream(here)
+        with torch.cuda.stream(stream):
+            self._decode_step()
+        here.wait_stream(stream)
+        self._capture(stream)
+        return False
+
+    def _capture(self, stream) -> None:
+        """Capture the fused step on `stream`, after an eager step there:
+        the engine keeps the kernel buffers the graph reads, and credits
+        the launches it counted at each replay."""
+        graph = torch.cuda.CUDAGraph()
+        if self.temperature > 0:
+            # its draws advance the generator at each replay as the eager
+            # step's would
+            graph.register_generator_state(self.generator)
+        with graph_capture(stream) as held:
+            with torch.cuda.graph(graph, stream=stream):
+                self._decode_step()
+        self._graph, self._graph_held = graph, held
 
     @torch.no_grad()
     def _prefill_one(self, tokens, slot: int):
@@ -231,8 +287,8 @@ class ServeEngine:
                                  cache=one)
         with span("engine.prefill.cache"):
             _scatter_slot(self.cache["layers"], one["layers"], slot)
-            self.cache["index"] = torch.maximum(self.cache["index"],
-                                                one["index"])
+            self.cache["index"].copy_(torch.maximum(self.cache["index"],
+                                                    one["index"]))
         return logits[0, -1]
 
     # ------------------------------------------------------------- #
@@ -241,7 +297,8 @@ class ServeEngine:
         it, in place of `RECENT`, one `prefill_step` span per admission
         (`rid`, `slot`, `prompt_len`, `launch_s`, `sync_s`) and one
         `decode_step` span per batched step (`step`, `n_live`, `launch_s`,
-        `sync_s`), and, tracing being on while it is attached, the `span`
+        `sync_s`, `graphed`: whether a CUDA graph replayed it), and,
+        tracing being on while it is attached, the `span`
         events inside them (`repro_torch.spans`). Under
         `engine="dispatch"` the tracer also threads through both
         planner-routed steps into `PlanExecutor.run` (per-node compute
@@ -326,7 +383,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         with scope(rec, self.tracer is not None, step=n):
             with span("engine.decode.launch"):
-                self._decode_step()
+                graphed = self._launch_step()
             t1 = time.perf_counter()
             # ONE host sync per step: tokens and positions fetched together
             with span("engine.decode.sync"):
@@ -334,10 +391,11 @@ class ServeEngine:
                                          self.slot_pos]).tolist()
             t2 = time.perf_counter()
         self.n_decode_steps += 1
+        self.n_graph_steps += graphed
         self.decode_s += t2 - t0
         rec.add("decode_step", f"step{n}", "engine", t0 - rec.origin,
                 t2 - rec.origin, step=n, n_live=self.slot_live.count(True),
-                launch_s=t1 - t0, sync_s=t2 - t1)
+                launch_s=t1 - t0, sync_s=t2 - t1, graphed=graphed)
         for slot, req in enumerate(self.slot_req):
             if req is None or not self.slot_live[slot]:
                 continue

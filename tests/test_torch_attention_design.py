@@ -193,6 +193,52 @@ def test_split_count_rule(b, kvh, w):
     assert kda.split_count(b, kvh, w, 66) <= s      # fewer SMs, no more
 
 
+def test_graph_capture_holds_launches_for_its_replays():
+    """Launches counted while a CUDA graph is captured (which runs none)
+    are held for the graph, and each replay credits them; counts outside
+    the capture go to the counters as before."""
+    from repro_torch.kernels import _build
+    counter = _build.LaunchCounter()
+    counter.count("a")
+    with _build.hold_launches() as held:
+        counter.count("a", 3)
+        counter.count()
+    assert counter.launches == 1 and counter.route_launches == {"a": 1}
+    for _ in range(2):
+        held.credit()
+    assert counter.launches == 9 and counter.route_launches == {"a": 7}
+
+
+def test_workspaces_of_a_stream():
+    """The workspaces a graph captured on a stream holds: that stream's,
+    of every device, and no other's."""
+    made = [kda.workspace(8, torch.device("cpu"), s) for s in (-5, -6)]
+    try:
+        assert [w is made[0] for w in kda.workspaces(-5)] == [True]
+        assert kda.workspaces(-7) == []
+    finally:
+        for s in (-5, -6):
+            kda._WORKSPACES.pop((None, s))
+
+
+def test_graph_capture_holds_launches_and_keeps_buffers():
+    """`kernels.graph_capture` on a stream: the launches counted inside
+    are held for the graph's replays, and on exit it keeps the decode
+    kernel's workspace of that stream, which the graph reads."""
+    from repro_torch.kernels import graph_capture
+    ws = kda.workspace(8, torch.device("cpu"), -5)
+    before = kda.KERNEL.launches
+    try:
+        with graph_capture(types.SimpleNamespace(cuda_stream=-5)) as held:
+            kda.KERNEL.count()
+        assert kda.KERNEL.launches == before
+        assert [w is ws for w in held.keep] == [True]
+        held.credit()
+        assert kda.KERNEL.launches == before + 1
+    finally:
+        kda._WORKSPACES.pop((None, -5))
+
+
 # --------------------------------------------------------------------- #
 # flash: the tensor-core route's numerics
 # --------------------------------------------------------------------- #

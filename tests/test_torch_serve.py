@@ -24,6 +24,7 @@ from repro_torch.configs import REDUCED as T_REDUCED
 from repro_torch.launch import serve as t_launch
 from repro_torch.models import forward as t_forward
 from repro_torch.models import init_cache as t_init_cache
+from repro_torch.models import tree_map as t_tree_map
 from repro_torch.serve import Request as TRequest
 from repro_torch.serve import ServeEngine as TServeEngine
 
@@ -32,9 +33,9 @@ LOGIT_TOL = {"float32": 1e-4, "bfloat16": 6e-2}
 
 
 @functools.cache
-def _model(dtype):
-    cfg = dataclasses.replace(REDUCED["granite-3-8b"], dtype=dtype)
-    tcfg = dataclasses.replace(T_REDUCED["granite-3-8b"], dtype=dtype)
+def _model(dtype, name="granite-3-8b"):
+    cfg = dataclasses.replace(REDUCED[name], dtype=dtype)
+    tcfg = dataclasses.replace(T_REDUCED[name], dtype=dtype)
     params = init_params(jax.random.PRNGKey(0), cfg, SHD)
     tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, params),
                                        device="cpu")
@@ -108,6 +109,47 @@ def test_serve_token_identical_to_reference():
         [torch.from_numpy(p) for p in prompts], TRequest)
     assert got == ref
     assert all(len(toks) == 3 + rid % 4 for rid, (toks, _) in got.items())
+
+
+@pytest.mark.parametrize("name", ["granite-3-8b", "qwen2-moe-a2.7b"])
+def test_engine_state_keeps_its_storage(name):
+    """Admissions and decode steps write the engine's tensors in place (a
+    CUDA graph of the step reads and writes them at fixed addresses):
+    `last_tok`, `slot_pos`, `live_mask`, `cache["index"]` and every cache
+    leaf keep their storage through admissions mid-run, slots dying and
+    re-admissions into the freed slots, and the tokens stay the
+    reference's."""
+    _, cfg, tcfg, params, tparams = _model("float32", name)
+    prompts = _prompts(cfg, 8, jax.random.PRNGKey(11))
+    ref = _run_16_steps(
+        ServeEngine(cfg, params, batch_slots=2, max_len=48, shd=SHD),
+        [jnp.asarray(p) for p in prompts], Request)
+    eng = TServeEngine(tcfg, tparams, batch_slots=2, max_len=48,
+                       device="cpu")
+
+    def storage():
+        leaves = []
+        t_tree_map(leaves.append, eng.cache)
+        return [t.data_ptr() for t in (eng.last_tok, eng.slot_pos,
+                                       eng.live_mask, eng.cache["index"],
+                                       *leaves)]
+
+    index, start = eng.cache["index"], storage()
+    reqs = [TRequest(i, torch.from_numpy(p), 3 + i % 4)
+            for i, p in enumerate(prompts)]
+    pending = list(reqs)
+    slots = []
+    for _ in range(16):
+        while pending and eng.admit(pending[0]):
+            slots.append(eng.slot_req.index(pending.pop(0)))
+            assert storage() == start
+        eng.step()
+        assert storage() == start and eng.cache["index"] is index
+    got = {r.rid: (list(r.out_tokens), r.done) for r in reqs}
+    assert got == ref
+    # every slot was freed and filled again, while the other one was live
+    assert len(slots) == 8 and sorted(set(slots)) == [0, 1]
+    assert eng.n_graph_steps == 0 and eng._graph is None
 
 
 def test_batched_equals_solo(model):
