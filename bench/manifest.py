@@ -1,8 +1,12 @@
 """`BENCHMARK.json` and the files it names, found by name: a cell's
 configuration in `bench/configs/<config>.json`, its traffic mix in
 `bench/workloads/<cell>.json`, each metric's reader in
-`bench/metrics/<metric>.py`. A model, a mix or a metric is added by
-adding such a file and its entry; nothing here names one.
+`bench/metrics/<metric>.py`. A configuration file's `reference` names
+its plain reference, `bench/reference/<reference>.py`, and its family,
+`bench/families/<reference>.py`. A model is added with its configuration
+file, and with its family module and its reference where its kind of
+stack is new; a mix or a metric by adding its file; each with its
+entry. Nothing here names one.
 """
 
 from __future__ import annotations
@@ -77,6 +81,9 @@ def problems(data: dict, root) -> list[str]:
     for c in data["configs"]:
         if not (root / c["file"]).is_file():
             out.append(f"config {c['name']}: no file {c['file']}")
+        else:
+            out += _modules(c["name"], json.loads((root / c["file"])
+                                                  .read_text()), root)
         for k in c["reduced"]:
             if not NAME.match(k):
                 out.append(f"bad reduced key {k!r}")
@@ -103,3 +110,14 @@ def problems(data: dict, root) -> list[str]:
                 out.append(f"metric {m['name']}: cell {cell} does not "
                            f"report {m['moves']}")
     return out
+
+
+def _modules(name: str, file: dict, root: Path) -> list[str]:
+    """What configuration file `file`'s `reference` names without a module
+    for it: its family and its plain reference."""
+    module = file.get("reference")
+    return [f"config {name}: no {kind} module {module!r}"
+            for kind, folder in (("family", "families"),
+                                 ("reference", "reference"))
+            if not (isinstance(module, str) and NAME.match(module)
+                    and (root / "bench" / folder / f"{module}.py").is_file())]

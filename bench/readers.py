@@ -88,14 +88,15 @@ def roofline(run, kernel: str) -> float | None:
     """% of its roofline that attention kernel `kernel` ("flash" or
     "decode") reached in the traced slice: the least time the slice's
     calls could take (the larger of FLOPs at the bf16 peak and bytes at
-    the HBM peak, call by call) over the device time of its kernels."""
+    the HBM peak, call by call, once in each of the step's attention
+    layers) over the device time of its kernels."""
     if run.slice is None or run.peaks is None:
         return None
     pat = KERNELS[kernel]
     spent = sum(s for n, s in run.slice["kernel_s"].items() if pat.search(n))
     if spent <= 0:
         return None
-    c, pk, layers = run.counts, run.peaks, run.counts.s["L"]
+    c, pk, layers = run.counts, run.peaks, run.counts.attn_layers
     if kernel == "flash":
         calls = [(c.flash_flops(n), c.flash_bytes(n))
                  for _, _, n in in_slice(run, run.prefills)]

@@ -101,6 +101,27 @@ def test_moves_must_be_reported_in_the_cell():
                for p in manifest.problems(bad, ROOT))
 
 
+@pytest.mark.parametrize("value,only_in,says", [
+    ("decoder", None, []),
+    ("nowhere", None, ["family", "reference"]),
+    ("../decoder", None, ["family", "reference"]),
+    ("solo", "reference", ["family"]),
+    ("solo", "families", ["reference"])])
+def test_a_config_names_its_family_and_reference(tmp_path, value, only_in,
+                                                 says):
+    """A configuration's `reference` names a module in both folders."""
+    root = make_tree(tmp_path, "float32")
+    if only_in is not None:
+        (root / "bench" / only_in / f"{value}.py").write_text("")
+    path = root / "bench" / "configs" / "granite-tiny.json"
+    path.write_text(json.dumps(dict(json.loads(path.read_text()),
+                                    reference=value)))
+    found = manifest.problems(json.loads((root / "BENCHMARK.json")
+                                         .read_text()), root)
+    assert found == [f"config granite-tiny: no {kind} module {value!r}"
+                     for kind in says]
+
+
 def test_a_cell_added_by_files_alone_runs(tmp_path):
     root = make_tree(tmp_path, "float32")
     man = Manifest(root)
@@ -108,7 +129,8 @@ def test_a_cell_added_by_files_alone_runs(tmp_path):
     out, run = run_cell(man, "tiny-dense.open", 7, 0.5, False, device="cpu",
                         t_start=time.perf_counter(), log=lambda m: None)
     assert out["correct"] and out["failed"] == 0
-    assert set(out["metrics"]) == {"ttft_p95_ms", "itl_p95_ms", "setup_s"}
+    assert set(out["metrics"]) == {"ttft_p95_ms", "itl_p50_ms", "itl_p99_ms",
+                                   "setup_s"}
     assert list(out)[-1] == "checks"
     assert all(math.isfinite(v["value"]) for v in out["metrics"].values())
     out, run = run_cell(man, "tiny-moe.closed", 7, 0.5, True, device="cpu",

@@ -35,15 +35,11 @@ def _traced(man, cell):
 
 @pytest.mark.parametrize("cell", ["tiny-dense.closed", "tiny-moe.closed"])
 def test_decode_split_within_the_step(man, cell):
-    out, run = _traced(man, cell)
+    out, _ = _traced(man, cell)
     got = {k: v["value"] for k, v in out["metrics"].items()}
     assert all(math.isfinite(got[k]) and got[k] > 0 for k in DECODE)
     assert got[DECODE[0]] + got[DECODE[1]] \
         <= 1.01 * got["engine.step_ms.decode"]
-    if cell == "tiny-moe.closed":
-        # listed in the qwen cell alone, so read here by hand
-        share = man.reader("model.moe_share.decode")(run)
-        assert 0 < share <= 100
 
 
 def test_prefill_split(man):
@@ -56,9 +52,9 @@ def test_prefill_split(man):
 
 def test_a_program_without_the_record_reports_nothing(man, monkeypatch):
     """A program that lacks the step record, as one older than these
-    metrics does, leaves the five metrics out and raises nothing."""
+    metrics does, leaves the four metrics out and raises nothing."""
     _, run = _traced(man, "tiny-moe.closed")
     import repro_torch.serve.engine as engine
     monkeypatch.delattr(engine, "RECENT")
-    for name in DECODE + PREFILL + ("model.moe_share.decode",):
+    for name in DECODE + PREFILL:
         assert man.reader(name)(run) is None
